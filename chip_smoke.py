@@ -20,11 +20,13 @@ line is printed. Exits non-zero at once when no CUDA device is present.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -32,8 +34,12 @@ import torch
 PRODUCTION_KSET = ((30, 29), (30, 27), (40, 39), (40, 37), (50, 49), (50, 47))
 PRODUCTION = dict(gaps_per_shard=64, read_len=100, step=4, flank_len=300,
                   gap_len=(100, 1000), kset=PRODUCTION_KSET)
-SW_OPS_PER_CELL = 12      # E 3, F 3, substitution 2, H 3, clamp 1
+# int32 operations a local-mode DP cell needs: H - go 1 (shared by the
+# E to the right and the F below), E 2, F 2, substitution 2, diag + s 1,
+# three maxes (diag vs E, vs F, vs 0)
+SW_OPS_PER_CELL = 11
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+N_WINDOWS, STEPS_PER_WINDOW = 5, 5
 
 
 def emit(**kw):
@@ -47,6 +53,52 @@ def smi(query: str) -> str:
     return out.strip().splitlines()[0]
 
 
+def step_window(fn, steps: int) -> dict:
+    """`steps` back-to-back calls of fn in one CUDA-event window: device
+    ms per call, and the host's wall and main-thread CPU ms per call
+    spent issuing them (the loop alone, before the closing sync). Issue
+    time near the device time means the host sets the pace. Also the
+    host probe's time just before the window."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    probe = host_probe_ms()
+    w0, c0 = time.perf_counter(), time.thread_time()
+    start.record()
+    for _ in range(steps):
+        fn()
+    end.record()
+    w1, c1 = time.perf_counter(), time.thread_time()
+    torch.cuda.synchronize()
+    return {"ms_per_step": start.elapsed_time(end) / steps,
+            "issue_ms_per_step": (w1 - w0) * 1e3 / steps,
+            "issue_cpu_ms_per_step": (c1 - c0) * 1e3 / steps,
+            "host_probe_ms": probe}
+
+
+def host_probe_ms() -> float:
+    """Milliseconds of a fixed pure-Python loop: how fast the host thread
+    runs at this moment, to read the step's spread against."""
+    t0 = time.perf_counter()
+    sum(i * i for i in range(300_000))
+    return (time.perf_counter() - t0) * 1e3
+
+
+def count_syncs(fn) -> int:
+    """Host-device synchronisations in one call of fn, as torch's sync
+    debug mode reports them."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds of fn() over `reps` runs, by CUDA events."""
     start = torch.cuda.Event(enable_timing=True)
@@ -58,30 +110,6 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def rand_pairs(rng, B, Lq, Lt):
-    """Ragged related query/target pairs, with all-N rows, empty-ish
-    rows and forced ties mixed in."""
-    q = rng.integers(0, 4, (B, Lq)).astype(np.int8)
-    t = rng.integers(0, 4, (B, Lt)).astype(np.int8)
-    ql = rng.integers(1, Lq + 1, B).astype(np.int32)
-    tl = rng.integers(1, Lt + 1, B).astype(np.int32)
-    for b in range(B):
-        k = int(min(ql[b], tl[b]) // 2)
-        if k >= 2:
-            off = int(rng.integers(0, tl[b] - k + 1))
-            chunk = q[b, :k].copy()
-            mut = rng.random(k) < 0.1
-            chunk[mut] = rng.integers(0, 4, int(mut.sum()))
-            t[b, off:off + k] = chunk
-    t[0::17] = 4                                   # all-N targets
-    q[1::19] = 4                                   # all-N queries
-    q[2::13] = 0                                   # forced ties: poly-A
-    t[2::13] = 0
-    q[3::11] = q[3::11, :1]
-    t[3::11] = q[3::11, :1]                        # one base repeated
-    return q, ql, t, tl
 
 
 def check_sw(sw_cuda, q, ql, t, tl, params, mode, slack, dev):
@@ -103,7 +131,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from gappadder_tpu_torch.ops import cuda_build, sw_cuda
-    from gappadder_tpu_torch.ops.sw_host import BWA_PARAMS, SWParams
+    from gappadder_tpu_torch.ops.sw_host import (BWA_PARAMS, SWParams,
+                                                 sw_test_pairs)
     from gappadder_tpu_torch.parallel import slice as sl
 
     dev = torch.device("cuda", 0)
@@ -124,18 +153,17 @@ def main() -> int:
         print(f"[nvcc {name}]\n{log}", file=sys.stderr)
 
     # ---- phase 2: SW kernel == plain on the card ---------------------------
-    rng = np.random.default_rng(0)
     max_err = 0
     n_checks = 0
     for mode in ("local", "overlap", "fit", "extend"):
         for params in (BWA_PARAMS, SWParams(), SWParams(2, -3, 5, 2)):
             for B, Lq, Lt in ((67, 24, 48), (40, 65, 33), (9, 300, 700)):
-                q, ql, t, tl = rand_pairs(rng, B, Lq, Lt)
+                q, ql, t, tl = sw_test_pairs(n_checks, B, Lq, Lt)
                 slack = 3 if mode == "overlap" else 0
                 max_err = max(max_err, check_sw(sw_cuda, q, ql, t,
                                                 tl, params, mode, slack, dev))
                 n_checks += 1
-    q, ql, t, tl = rand_pairs(rng, 6144, 300, 2048)
+    q, ql, t, tl = sw_test_pairs(n_checks, 6144, 300, 2048)
     max_err = max(max_err, check_sw(sw_cuda, q, ql, t, tl,
                                     BWA_PARAMS, "local", 0, dev))
     n_checks += 1
@@ -172,10 +200,7 @@ def main() -> int:
     res = [o.cpu().numpy() for o in out]
     counts, ulen, sc = res[0], res[7], res[9]
     sl.check_overflow(pdims, counts)
-    grng = np.random.default_rng(0)        # example_data's first draw
-    lo, hi = PRODUCTION["gap_len"]
-    glens = np.exp(grng.uniform(np.log(lo), np.log(hi), pdims.n_gaps))
-    glens = np.clip(np.round(glens).astype(np.int32), lo, hi)
+    glens = pargs[17] - pargs[16]          # gap_end - gap_start
     mu = pdims.max_unitigs
     for s, (k, _sk) in enumerate(pdims.kset):
         short = np.nonzero(ulen[:, s * mu] < glens + k)[0]
@@ -214,13 +239,36 @@ def main() -> int:
                                     "max_distinct"])
 
     # ---- phase 6: times ----------------------------------------------------
-    sl.run_step(pdims, pin)                              # warm-up
-    step_runs = [cuda_ms(lambda: sl.run_step(pdims, pin), 1)
-                 for _ in range(5)]
-    step_ms = sorted(step_runs)[len(step_runs) // 2]
-    emit(phase="step_time", step_ms=step_ms, step_ms_runs=step_runs,
+    step = lambda: sl.run_step(pdims, pin)
+    step()                                               # warm-up
+    emit(phase="host", cpu_count=os.cpu_count(), loadavg=os.getloadavg(),
+         torch_threads=torch.get_num_threads(), smi=card)
+    windows = [step_window(step, STEPS_PER_WINDOW) for _ in range(N_WINDOWS)]
+    gc.collect()
+    gc.disable()
+    try:
+        nogc = [step_window(step, STEPS_PER_WINDOW) for _ in range(N_WINDOWS)]
+    finally:
+        gc.enable()
+    single = [step_window(step, 1) for _ in range(5)]
+    per_step = sorted(w["ms_per_step"] for w in windows)
+    step_ms = per_step[len(per_step) // 2]
+    syncs = count_syncs(step)
+    col = lambda ws, key: [w[key] for w in ws]
+    emit(phase="step_time", step_ms=step_ms,
          gaps_per_s=pdims.n_gaps / (step_ms / 1e3), n_gaps=pdims.n_gaps,
-         smi=card)
+         steps_per_window=STEPS_PER_WINDOW,
+         window_ms_per_step=col(windows, "ms_per_step"),
+         spread_ms=per_step[-1] - per_step[0],
+         window_issue_ms_per_step=col(windows, "issue_ms_per_step"),
+         window_issue_cpu_ms_per_step=col(windows, "issue_cpu_ms_per_step"),
+         window_host_probe_ms=col(windows, "host_probe_ms"),
+         nogc_window_ms_per_step=col(nogc, "ms_per_step"),
+         nogc_window_host_probe_ms=col(nogc, "host_probe_ms"),
+         single_step_ms=col(single, "ms_per_step"),
+         single_issue_ms=col(single, "issue_ms_per_step"),
+         single_host_probe_ms=col(single, "host_probe_ms"),
+         host_syncs_per_step=syncs, loadavg=os.getloadavg(), smi=card)
 
     Lq, Lt = pq.shape[1], pt.shape[1]
     qrows = torch.clamp(pql, max=Lq).long()
@@ -235,7 +283,7 @@ def main() -> int:
         pq, pql, pt, ptl, BWA_PARAMS, "local"), 1)
     B = pq.shape[0]
     ops_s = props.multi_processor_count * 64 * sm_clock_mhz * 1e6
-    ops_ms = cells * SW_OPS_PER_CELL / ops_s * 1e3
+    ops_ms = live_cells * SW_OPS_PER_CELL / ops_s * 1e3
     bytes_ms = (B * (Lq + Lt) + 8 * B + 12 * B) / HBM_BYTES_PER_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
     emit(phase="sw_time", sw_ms=sw_ms, plain_ms=plain_ms, pairs=B,
@@ -247,11 +295,14 @@ def main() -> int:
 
     # per-block breakdown and device busy share of the production step
     block_times(sl, pdims, pin)                          # warm-up
-    blocks = block_times(sl, pdims, pin)
-    emit(phase="step_blocks", **blocks, smi=card)
+    runs = [block_times(sl, pdims, pin) for _ in range(3)]
+    blocks = {k: sorted(r[k] for r in runs)[1] for k in runs[0]}
+    emit(phase="step_blocks", **blocks, sum_ms=sum(blocks.values()),
+         runs=runs, smi=card)
     prof = profile_step(sl, pdims, pin)
     emit(phase="step_profile", **prof,
-         busy_share_of_step=prof["device_busy_ms"] / step_ms, smi=card)
+         busy_share=prof["device_busy_ms"] / prof["profiled_wall_ms"],
+         smi=card)
 
     emit(kernels=[{
         "name": "sw_batch_cuda", "route": "cuda",
@@ -274,7 +325,7 @@ def block_times(sl, dims, a):
     with torch.no_grad():
         torch.cuda.synchronize()
         ev[0].record()
-        entries, _, _ = sl._classify_extract(*a[:18], dims=dims)
+        entries, _ = sl._classify_extract(*a[:18], dims=dims)
         rowtab, _, _, _ = sl._route_and_group(entries, *a[18:22], dims=dims)
         ev[1].record()
         seq, rlen = sl.gather_reads(rowtab, a[22], a[23])

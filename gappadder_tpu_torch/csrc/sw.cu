@@ -14,13 +14,18 @@
 // existed only because Mosaic has no dynamic slices.
 //
 // Bound on this card: int32 ALU instruction throughput, not bytes. A
-// pair reads at most Lq + Lt bytes and writes 12, against ~12 integer
-// operations for each of its Lq x Lt cells. The design spends no
-// instruction on memory traffic inside the sweep (registers + one
-// shared load pair per cell), stops each pair at its own last live
-// diagonal instead of the padded one, and keeps a running best per
-// thread with one block reduction at the end. Not yet used: DPX
-// instructions (__viaddmax_s32, __vimax3_s32) and packed 16-bit lanes.
+// pair reads at most Lq + Lt bytes and writes 12, against 11 plain
+// int32 operations for each of its Lq x Lt cells: H - go once (it feeds
+// both the E of the cell to the right and the F of the cell below),
+// E and F one subtract and one max each, the substitution score a
+// compare and a select, diag + s, and three maxes (diag vs E, vs F, vs
+// 0). The design spends no instruction on memory traffic inside the
+// sweep (registers + one shared load pair per cell), stops each pair at
+// its own last live diagonal instead of the padded one, and keeps a
+// running best per thread with one block reduction at the end. Not yet
+// used: DPX instructions, whose fused add-max (__viaddmax_s32) and
+// 3-way max (__vimax3_s32) would cut those 11 instructions further,
+// and packed 16-bit lanes.
 //
 // Tie-break (exact): score descending, then diagonal ascending, then
 // row ascending.

@@ -4,7 +4,7 @@ PyTorch version.
 `sw_batch_cuda` launches the hand-written kernel `csrc/sw.cu`, the
 port of gappadder_tpu/ops/sw_pallas.py::sw_batch_pallas. What bounds
 it on an H100 is int32 ALU instruction throughput, not bytes: a pair
-moves Lq + Lt bytes in and 12 out but needs ~12 integer operations for
+moves Lq + Lt bytes in and 12 out but needs 11 int32 operations for
 each of its Lq x Lt cells. The kernel therefore keeps the DP state in registers
 (one thread per query row, one barrier per anti-diagonal), stages the
 target once in shared memory and stops each pair at its own last live

@@ -11,23 +11,19 @@ from __future__ import annotations
 import torch
 
 
-def route_shard(payloads, dest, valid, *, out_cap: int, fills=None):
+def route_shard(payloads, valid, *, out_cap: int, fills):
     """Compact the valid rows of each payload to the front, in order,
-    into [out_cap, ...]. Padding is `fills[i]` for payload i; by default
-    -1 for signed dtypes and 0 otherwise (pass 0 for a payload that
-    holds uint32 values in int64).
+    into [out_cap, ...]. Padding is `fills[i]` for payload i. The JAX
+    form's `dest` is dropped: with one shard every row's home is here.
 
     Returns (routed, src, n_recv): src int32 [out_cap] is 0 on delivered
     rows and -1 on padding; n_recv int32 [1] is the raw demand (a value
     above out_cap means rows were dropped)."""
-    del dest
     order = torch.sort((~valid).to(torch.int8), stable=True).indices[:out_cap]
     nv = valid.sum().to(torch.int32)
     live = torch.arange(out_cap, device=valid.device) < torch.clamp(
         nv, max=out_cap)
     outs = []
-    if fills is None:
-        fills = [-1 if p.dtype.is_signed else 0 for p in payloads]
     for p, fill in zip(payloads, fills):
         res = p[order]
         if res.shape[0] < out_cap:

@@ -87,10 +87,14 @@ def dims_from_fields(fields: dict) -> SliceDims:
 
 
 def inputs_from_numpy(args, device) -> tuple:
-    """The step's 28 numpy inputs as tensors on `device`; uint32 columns
-    (name hashes) become int64 holding the same values."""
+    """The step's 28 inputs as tensors on `device`. Numpy arrays are
+    converted (uint32 columns, the name hashes, become int64 holding the
+    same values); tensors are moved to `device`."""
     out = []
     for a in args:
+        if torch.is_tensor(a):
+            out.append(a.to(device))
+            continue
         a = np.asarray(a)
         a = a.astype(np.int64 if a.dtype == np.uint32 else a.dtype)
         out.append(torch.from_numpy(a).to(device))
@@ -107,8 +111,9 @@ def _classify_extract(tid, pos, flag, mapq, mtid, mpos, tlen, lclip, rclip,
                       *, dims: SliceDims):
     """Classify records against the gap windows and flatten the hits
     into entries (gap, side, hi, lo, hq, valid); sides are FASTQ-table
-    keys 2*lib + (0 left / 1 right). Also returns (mate_tid, mate_pos)
-    per entry (disc third only, -1 elsewhere) and the class counts."""
+    keys 2*lib + (0 left / 1 right). Also returns the class counts. The
+    JAX step's (mate_tid, mate_pos) columns feed only the collect stage
+    (a later slice of the port), so they are not built here."""
     out = classify_reads(
         tid, pos, flag, mapq, mtid, mpos, tlen, lclip, rclip,
         wtid, wstart, wend, wgap, wedge, gap_start, gap_end,
@@ -118,21 +123,17 @@ def _classify_extract(tid, pos, flag, mapq, mtid, mpos, tlen, lclip, rclip,
     counts3 = torch.stack([out[k].sum() for k in ("clip", "disc", "unmap")]
                           ).to(torch.int32)
     parts = []
-    neg = torch.full_like(tid, -1)
     for kind, sidekey in (("clip", "side_self"), ("disc", "side_mate"),
                           ("unmap", "side_mate")):
         mask = out[kind]                       # [B, K]
         shape = mask.shape
-        mt = mtid if kind == "disc" else neg
-        mp = mpos if kind == "disc" else neg
         cols = (out["gap"], out[sidekey] + 2 * dims.lib,
                 name_hi[:, None].expand(shape), name_lo[:, None].expand(shape),
-                (mapq == dims.hq_mapq)[:, None].expand(shape), mask,
-                mt[:, None].expand(shape), mp[:, None].expand(shape))
+                (mapq == dims.hq_mapq)[:, None].expand(shape), mask)
         parts.append([c.reshape(-1) for c in cols])
-    gap, side, hi, lo, hq, valid, mt, mp = (
-        torch.cat([p[i] for p in parts]) for i in range(8))
-    return ((gap, side, hi, lo, hq, valid & (gap >= 0)), (mt, mp), counts3)
+    gap, side, hi, lo, hq, valid = (
+        torch.cat([p[i] for p in parts]) for i in range(6))
+    return (gap, side, hi, lo, hq, valid & (gap >= 0)), counts3
 
 
 # ---------------------------------------------------------------------------
@@ -183,8 +184,8 @@ def _route_and_group(entries, tbl_hi, tbl_lo, tbl_row, tbl_side,
     hqtab, n_reads, (raw per-gap max, raw router demand))."""
     gap, side, hi, lo, hq, valid = entries
     (rgap, rside, rhi, rlo, rhq), _src, n_recv = dist.route_shard(
-        (gap, side, hi, lo, hq.to(torch.int32)), dest=gap % dims.n_shards,
-        valid=valid, out_cap=dims.entry_cap, fills=(-1, -1, 0, 0, -1))
+        (gap, side, hi, lo, hq.to(torch.int32)), valid,
+        out_cap=dims.entry_cap, fills=(-1, -1, 0, 0, -1))
     g2, _s2, row2, hq2, ok2 = dedup_and_join(
         rgap, rside, rhi, rlo, rhq.to(torch.bool),
         tbl_hi, tbl_lo, tbl_row, tbl_side)
@@ -328,7 +329,7 @@ def _step(tid, pos, flag, mapq, mtid, mpos, tlen, lclip, rclip,
         raise ValueError("the port runs the step on one device: "
                          f"n_shards must be 1, got {dims.n_shards}")
     # ---- block 1 ---------------------------------------------------------
-    entries, _mates, counts3 = _classify_extract(
+    entries, counts3 = _classify_extract(
         tid, pos, flag, mapq, mtid, mpos, tlen, lclip, rclip,
         name_hi, name_lo,
         wtid, wstart, wend, wgap, wedge, gap_start, gap_end, dims=dims)
@@ -359,15 +360,16 @@ def _step(tid, pos, flag, mapq, mtid, mpos, tlen, lclip, rclip,
 def run_step(dims: SliceDims, args, device="cuda"):
     """Run the fused step on `device` (the card unless the caller asks
     for "cpu"). `args` are the 28 inputs of `example_data`, as numpy
-    arrays or as tensors already on the device. Returns the 12 outputs
-    (counts, hist, n_recv, n_reads, rowtab, hqtab, useq, ulen, ucnt,
-    score, qend, tend)."""
+    arrays or tensors; each is brought to `device` (a no-op for a
+    tensor already there), so the step runs where the caller asked,
+    whatever device the inputs were on. Returns the 12 outputs (counts,
+    hist, n_recv, n_reads, rowtab, hqtab, useq, ulen, ucnt, score, qend,
+    tend)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("run_step: no CUDA device is available; pass "
                            "device='cpu' to run on the CPU")
-    if any(isinstance(a, np.ndarray) for a in args):
-        args = inputs_from_numpy(args, device)
+    args = inputs_from_numpy(args, device)
     with torch.no_grad():
         return _step(*args, dims=dims)
 

@@ -11,8 +11,8 @@ import pytest
 import torch
 
 from gappadder_tpu_torch.ops import sw_cuda, sw_host
+from gappadder_tpu_torch.ops.sw_host import sw_test_pairs
 from gappadder_tpu_torch.parallel import slice as sl
-from sw_pairs import sw_pairs
 
 MODES = ["local", "overlap", "fit", "extend"]
 
@@ -27,7 +27,7 @@ def cuda():
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", MODES)
 def test_kernel_matches_plain(cuda, mode):
-    q, ql, t, tl = sw_pairs(23, B=97, Lq=70, Lt=300)
+    q, ql, t, tl = sw_test_pairs(23, B=97, Lq=70, Lt=300)
     args = [torch.from_numpy(x).to(cuda) for x in (q, ql, t, tl)]
     slack = 2 if mode == "overlap" else 0
     params = sw_host.SWParams(1, -4, 7, 1)

@@ -50,9 +50,17 @@ def test_run_step_refuses_without_gpu(monkeypatch):
         sl.run_step(dims, args)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         sl.run_step(dims, args, device="cuda")
+    # tensors already on the CPU do not make the default run there
+    cpu_tensors = sl.inputs_from_numpy(args, "cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sl.run_step(dims, cpu_tensors)
     counts = sl.run_step(dims, args, device="cpu")[0]
     assert counts.device.type == "cpu" and counts.dtype == torch.int32
     assert np.asarray(counts)[0] == 25
+    # mixed numpy and tensor inputs all go to the device asked for
+    mixed = (cpu_tensors[0],) + tuple(args[1:])
+    again = sl.run_step(dims, mixed, device="cpu")[0]
+    assert torch.equal(again, counts)
 
 
 def test_kernel_modules_import_without_cuda():
