@@ -2,13 +2,17 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written kernels from `gappadder_tpu_torch/csrc/`,
-holds each against its plain PyTorch version on the card, drives the
-port's main path (the fused collect->assemble->pick step,
-`gappadder_tpu_torch.parallel.slice.run_step`) at the toy size and at
-the production size (64 gaps, six (k, sub_k) settings, 300 bp flanks,
-100 bp reads, 100-1000 bp gaps), checks its outputs, fires the
-capacity checks, and times the step and the kernels with CUDA events.
+Builds the hand-written kernels from `gappadder_tpu_torch/csrc/` (the
+SW kernel `sw.cu` and the sort `sort.cu`), holds each against its plain
+PyTorch version on the card, and drives the port's paths at the
+production size: the fused collect->assemble->pick step
+(`parallel.slice.run_step`: 64 gaps, six (k, sub_k) settings, 300 bp
+flanks, 100 bp reads, 100-1000 bp gaps), the shipped Assembly batch
+(`pipeline.fused.assemble_batch`) on that scenario's reads, and the
+Pick stage (`pipeline.run._pick_gaps`) on its contigs. It checks their
+outputs, fires the capacity checks and the cap growth, and times the
+step, the kernels, the Assembly batch and Pick with CUDA events and
+host clocks.
 
 Prints JSON lines along the way; the line before the last is the
 `kernels` record and the last line is
@@ -19,6 +23,7 @@ line is printed. Exits non-zero at once when no CUDA device is present.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -125,15 +130,48 @@ def check_sw(sw_cuda, q, ql, t, tl, params, mode, slack, dev):
     return err
 
 
+def check_sort(psort, ops, nk) -> int:
+    """Sort kernel vs plain on the card, every plane exactly; returns
+    the max abs difference (0)."""
+    got = psort.bitonic_sort(ops, nk, stable=True)
+    want = psort.bitonic_sort_plain(ops, nk)
+    for g, w in zip(got, want):
+        if g.shape != w.shape or g.dtype != w.dtype or not torch.equal(g, w):
+            diff = (g - w).abs().max() if g.numel() else 0
+            raise AssertionError(f"sort kernel != plain: shape="
+                                 f"{tuple(w.shape)} keys={nk} err={diff}")
+    return 0
+
+
+@contextlib.contextmanager
+def patched(module, name, value):
+    """Temporarily replace `module.name` (restored on exit)."""
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def same_contigs(a, b) -> bool:
+    return (all(np.array_equal(getattr(a, f), getattr(b, f))
+                for f in ("seq", "length", "count")) and a.names == b.names)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from gappadder_tpu_torch.ops import cuda_build, sw_cuda
+    from gappadder_tpu_torch.config import Config
+    from gappadder_tpu_torch.ops import cuda_build, psort, sw_cuda, sw_host
+    from gappadder_tpu_torch.ops import swutil
     from gappadder_tpu_torch.ops.sw_host import (BWA_PARAMS, SWParams,
                                                  sw_test_pairs)
     from gappadder_tpu_torch.parallel import slice as sl
+    from gappadder_tpu_torch.pipeline import fused, run
+    from gappadder_tpu_torch.utils import log
 
     dev = torch.device("cuda", 0)
     card = smi("name,power.limit")
@@ -149,8 +187,8 @@ def main() -> int:
     reports = cuda_build.build_all()
     emit(phase="build", seconds=round(time.time() - t0, 3),
          built=sorted(reports))
-    for name, log in reports.items():
-        print(f"[nvcc {name}]\n{log}", file=sys.stderr)
+    for name, log_text in reports.items():
+        print(f"[nvcc {name}]\n{log_text}", file=sys.stderr)
 
     # ---- phase 2: SW kernel == plain on the card ---------------------------
     max_err = 0
@@ -163,16 +201,34 @@ def main() -> int:
                 max_err = max(max_err, check_sw(sw_cuda, q, ql, t,
                                                 tl, params, mode, slack, dev))
                 n_checks += 1
-    q, ql, t, tl = sw_test_pairs(n_checks, 6144, 300, 2048)
-    max_err = max(max_err, check_sw(sw_cuda, q, ql, t, tl,
-                                    BWA_PARAMS, "local", 0, dev))
-    n_checks += 1
+    # the step's block-4 shape, then Pick's bucketed local and fit shape
+    for (B, Lq, Lt), mode in (((6144, 300, 2048), "local"),
+                              ((2048, 512, 2048), "local"),
+                              ((2048, 512, 2048), "fit")):
+        q, ql, t, tl = sw_test_pairs(n_checks, B, Lq, Lt)
+        max_err = max(max_err, check_sw(sw_cuda, q, ql, t, tl,
+                                        BWA_PARAMS, mode, 0, dev))
+        n_checks += 1
     emit(phase="sw_check", cases=n_checks, max_abs_err=max_err,
-         production_shape=[6144, 300, 2048])
+         production_shapes=[[6144, 300, 2048, "local"],
+                            [2048, 512, 2048, "local"],
+                            [2048, 512, 2048, "fit"]])
 
-    # ---- phase 3: toy step on the card == the port's CPU run ---------------
+    # ---- phase 3: sort kernel == plain on the card -------------------------
+    sort_err = 0
+    for name in psort.SORT_CASES:
+        planes, nk = psort.sort_case(name, seed=len(name))
+        ops = [torch.from_numpy(x).to(dev) for x in planes]
+        sort_err = max(sort_err, check_sort(psort, ops, nk))
+    emit(phase="sort_check", cases=len(psort.SORT_CASES),
+         names=list(psort.SORT_CASES), max_abs_err=sort_err)
+
+    # ---- phase 4: toy step on the card == the port's CPU run ---------------
     dims, args = sl.example_data(1, gaps_per_shard=2)
+    sorts = psort.launches
     gpu = [o.cpu().numpy() for o in sl.run_step(dims, args)]
+    if psort.launches == sorts:
+        raise AssertionError("toy step did not launch the sort kernel")
     cpu = [o.numpy() for o in sl.run_step(dims, args, device="cpu")]
     names = ("counts", "hist", "n_recv", "n_reads", "rowtab", "hqtab",
              "useq", "ulen", "ucnt", "score", "qend", "tend")
@@ -186,17 +242,18 @@ def main() -> int:
     assert (ulen.max(axis=1) >= 128).all()
     assert (sc[:, 0:2].max(axis=(1, 2)) == 40).all()
     assert (sc[:, 2:4].max(axis=(1, 2)) == 40).all()
-    emit(phase="toy_step", outputs_equal_cpu=True, closure=True)
+    emit(phase="toy_step", outputs_equal_cpu=True, closure=True,
+         sort_launches=psort.launches - sorts)
 
-    # ---- phase 4: the production step --------------------------------------
+    # ---- phase 5: the production step --------------------------------------
     pdims, pargs = sl.example_data(1, **PRODUCTION)
     pin = sl.inputs_from_numpy(pargs, dev)
-    sw_cuda.launches = 0
+    sw_cuda.launches = psort.launches = 0
     out = sl.run_step(pdims, pin)
     torch.cuda.synchronize()
-    sw_launches = sw_cuda.launches
-    if sw_launches < 1:
-        raise AssertionError("production step did not launch the SW kernel")
+    launches = {"step": {"sw": sw_cuda.launches, "sort": psort.launches}}
+    if min(launches["step"].values()) < 1:
+        raise AssertionError(f"production step launches {launches['step']}")
     res = [o.cpu().numpy() for o in out]
     counts, ulen, sc = res[0], res[7], res[9]
     sl.check_overflow(pdims, counts)
@@ -221,11 +278,19 @@ def main() -> int:
         zero = torch.zeros_like(r)
         if not torch.equal(r, torch.where(live, p.reshape(live.shape), zero)):
             raise AssertionError("step's block-4 outputs != plain SW")
+    # the step with the plain sort gives the same 12 outputs
+    with patched(psort, "bitonic_sort", psort.bitonic_sort_plain):
+        out_plain = sl.run_step(pdims, pin)
+    for nm, a, b in zip(names, out, out_plain):
+        if not torch.equal(a, b):
+            raise AssertionError(f"production step: {nm} differs between "
+                                 "the sort kernel and the plain sort")
     emit(phase="production_step", n_gaps=pdims.n_gaps,
-         counts=counts.tolist(), sw_launches=sw_launches,
-         sw_batch=list(pq.shape) + [pt.shape[1]], block4_equal_plain=True)
+         counts=counts.tolist(), launches=launches["step"],
+         sw_batch=list(pq.shape) + [pt.shape[1]], block4_equal_plain=True,
+         outputs_equal_plain_sort=True)
 
-    # ---- phase 5: undersized caps fire check_overflow ----------------------
+    # ---- phase 6: undersized caps fire check_overflow ----------------------
     for field, tiny in (("entry_cap", 8), ("reads_per_gap", 4),
                         ("max_distinct", 32)):
         d3 = dataclasses.replace(dims, **{field: tiny})
@@ -238,12 +303,115 @@ def main() -> int:
     emit(phase="cap_stress", fired=["entry_cap", "reads_per_gap",
                                     "max_distinct"])
 
-    # ---- phase 6: times ----------------------------------------------------
+    # ---- phase 7: the shipped Assembly batch -------------------------------
+    # toy batch: card == the port's CPU run
+    tdims, targs = sl.example_data(1, gaps_per_shard=3, gap_len=(64, 160))
+    trow = sl.run_step(tdims, targs, device="cpu")[4].numpy()
+    trs, tpg, _ = sl.example_reads(targs, trow)
+    tR, tmd = run._bucket_of(max(len(p) for p in tpg))
+    tcfg = Config(draft_genome="draft.fa", kmers=((17, 15), (21, 19)))
+    tb, tL = [0, 1, 2, -1], targs[22].shape[1]
+    tgpu = fused.assemble_batch(tcfg, tb, tpg, trs, tR, tL, tmd)
+    tcpu = fused.assemble_batch(tcfg, tb, tpg, trs, tR, tL, tmd, device="cpu")
+    if not same_contigs(tgpu, tcpu):
+        raise AssertionError("toy Assembly batch differs card vs CPU")
+    # production: the step's reads and per-gap recruits, shipped defaults
+    readsets, per_gap, gaps = sl.example_reads(pargs, res[4])
+    R, md = run._bucket_of(max(len(p) for p in per_gap))
+    cfg = Config(draft_genome="draft.fa", kmers=PRODUCTION_KSET)
+    batch = list(range(pdims.n_gaps))
+    L = pargs[22].shape[1]
+    assert cfg.tpu.gap_batch == len(batch)
+    sw_cuda.launches = psort.launches = 0
+    log.reset_cap_events()
+    contigs = fused.assemble_batch(cfg, batch, per_gap, readsets, R, L, md)
+    launches["assemble_batch"] = {"sw": sw_cuda.launches,
+                                  "sort": psort.launches}
+    if launches["assemble_batch"]["sort"] < 1:
+        raise AssertionError("assemble_batch did not launch the sort kernel")
+    grow_keys = ("kmer_table_grow", "dbg_node_cap_grow", "unitig_slots_grow",
+                 "contig_len_grow")
+    shipped_events = {k: log.cap_events(k) for k in grow_keys}
+    check_closure(contigs, glens, cfg.kmers)
+    # a small starting distinct-k-mer table: the caps have to grow
+    log.reset_cap_events()
+    small_md = 1024
+    grown = fused.assemble_batch(cfg, batch, per_gap, readsets, R, L,
+                                 small_md)
+    grow_events = {k: log.cap_events(k) for k in grow_keys}
+    if not any(grow_events.values()):
+        raise AssertionError("no cap grew from max_distinct=1024")
+    check_closure(grown, glens, cfg.kmers)
+    emit(phase="assembly", toy_equal_cpu=True, n_gaps=len(batch), R=R,
+         max_distinct=md, contigs_per_gap=[int(contigs.count.min()),
+                                           int(contigs.count.max())],
+         launches=launches["assemble_batch"], shipped_events=shipped_events,
+         grow_from_max_distinct=small_md, grow_events=grow_events,
+         closed_every_gap_every_setting=True)
+
+    # ---- phase 8: Pick ------------------------------------------------------
+    store = {g: run._tuple_from_list(
+        [contigs.seq[g, j, :contigs.length[g, j]]
+         for j in range(int(contigs.count[g]))], contigs.names[g])
+        for g in batch}
+    truth = sl.example_fills(pargs, per_gap)
+    pick_times = {"sw_ms": 0.0, "host_ms": 0.0}
+
+    def timed(fn, key):
+        def wrapper(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                pick_times[key] += (time.perf_counter() - t) * 1e3
+        return wrapper
+
+    def run_pick():
+        fills, exts = {}, {}
+        for key in pick_times:
+            pick_times[key] = 0.0
+        t = time.perf_counter()
+        with patched(swutil, "sw_pairs", timed(swutil.sw_pairs, "sw_ms")), \
+                patched(sw_host, "alignment_stats_batch",
+                        timed(sw_host.alignment_stats_batch, "host_ms")):
+            run._pick_gaps(cfg, gaps, batch, store, fills, exts,
+                           cfg.pick_min_score_round1, False)
+        return fills, dict(pick_times,
+                           total_ms=(time.perf_counter() - t) * 1e3)
+
+    sw_cuda.launches = psort.launches = 0
+    fills, _ = run_pick()
+    launches["pick"] = {"sw": sw_cuda.launches, "sort": psort.launches}
+    if launches["pick"]["sw"] < 1:
+        raise AssertionError("Pick did not launch the SW kernel")
+    missing = [g for g in batch if g not in fills]
+    if missing:
+        raise AssertionError(f"Pick left gaps {missing} unfilled")
+    wrong = [g for g in batch if not np.array_equal(fills[g][0], truth[g])]
+    if wrong:
+        raise AssertionError(f"Pick's fills of gaps {wrong} differ from the "
+                             "planted bases")
+    emit(phase="pick", n_gaps=len(batch), filled=len(fills),
+         equal_planted=True, min_score=cfg.pick_min_score_round1,
+         launches=launches["pick"])
+
+    # ---- phase 9: times ----------------------------------------------------
     step = lambda: sl.run_step(pdims, pin)
+    with patched(psort, "bitonic_sort", psort.bitonic_sort_plain):
+        step()
     step()                                               # warm-up
     emit(phase="host", cpu_count=os.cpu_count(), loadavg=os.getloadavg(),
          torch_threads=torch.get_num_threads(), smi=card)
-    windows = [step_window(step, STEPS_PER_WINDOW) for _ in range(N_WINDOWS)]
+    # the step with the sort kernel and with the plain sort, in
+    # alternating turns (kernel, plain, plain, kernel, ...)
+    windows, plain_windows = [], []
+    for i in range(N_WINDOWS):
+        for use_kernel in ((True, False) if i % 2 == 0 else (False, True)):
+            if use_kernel:
+                windows.append(step_window(step, STEPS_PER_WINDOW))
+            else:
+                with patched(psort, "bitonic_sort", psort.bitonic_sort_plain):
+                    plain_windows.append(step_window(step, STEPS_PER_WINDOW))
     gc.collect()
     gc.disable()
     try:
@@ -253,6 +421,7 @@ def main() -> int:
     single = [step_window(step, 1) for _ in range(5)]
     per_step = sorted(w["ms_per_step"] for w in windows)
     step_ms = per_step[len(per_step) // 2]
+    plain_step = sorted(w["ms_per_step"] for w in plain_windows)
     syncs = count_syncs(step)
     col = lambda ws, key: [w[key] for w in ws]
     emit(phase="step_time", step_ms=step_ms,
@@ -263,6 +432,9 @@ def main() -> int:
          window_issue_ms_per_step=col(windows, "issue_ms_per_step"),
          window_issue_cpu_ms_per_step=col(windows, "issue_cpu_ms_per_step"),
          window_host_probe_ms=col(windows, "host_probe_ms"),
+         plain_sort_step_ms=plain_step[len(plain_step) // 2],
+         plain_sort_window_ms_per_step=col(plain_windows, "ms_per_step"),
+         plain_sort_window_host_probe_ms=col(plain_windows, "host_probe_ms"),
          nogc_window_ms_per_step=col(nogc, "ms_per_step"),
          nogc_window_host_probe_ms=col(nogc, "host_probe_ms"),
          single_step_ms=col(single, "ms_per_step"),
@@ -293,6 +465,19 @@ def main() -> int:
          bound_ms=bound_ms, bound_ops_ms=ops_ms, bound_bytes_ms=bytes_ms,
          smi=card)
 
+    sort = sort_times(psort, step)
+    emit(phase="sort_time", **sort, smi=card)
+
+    fused.assemble_batch(cfg, batch, per_gap, readsets, R, L, md)
+    t = time.perf_counter()
+    fused.assemble_batch(cfg, batch, per_gap, readsets, R, L, md)
+    asm_ms = (time.perf_counter() - t) * 1e3
+    _, pick_ms = run_pick()
+    emit(phase="stage_time", assemble_batch_ms=asm_ms,
+         assemble_gaps_per_s=len(batch) / (asm_ms / 1e3),
+         pick_ms=pick_ms, pick_gaps_per_s=len(batch) /
+         (pick_ms["total_ms"] / 1e3), smi=card)
+
     # per-block breakdown and device busy share of the production step
     block_times(sl, pdims, pin)                          # warm-up
     runs = [block_times(sl, pdims, pin) for _ in range(3)]
@@ -300,23 +485,100 @@ def main() -> int:
     emit(phase="step_blocks", **blocks, sum_ms=sum(blocks.values()),
          runs=runs, smi=card)
     prof = profile_step(sl, pdims, pin)
+    with patched(psort, "bitonic_sort", psort.bitonic_sort_plain):
+        prof_plain = profile_step(sl, pdims, pin)
     emit(phase="step_profile", **prof,
          busy_share=prof["device_busy_ms"] / prof["profiled_wall_ms"],
-         smi=card)
+         plain_sort=prof_plain, smi=card)
 
     emit(kernels=[{
         "name": "sw_batch_cuda", "route": "cuda",
         "source": "gappadder_tpu_torch/csrc/sw.cu",
         "replaces": "gappadder_tpu/ops/sw_pallas.py:242",
-        "launches": sw_launches, "max_abs_err": float(max_err),
+        "launches": launches["step"]["sw"], "max_abs_err": float(max_err),
         "ms": sw_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "library_ms": None, "check": "exact equality with sw_batch_plain"}])
+        "library_ms": None,
+        "launches_by_path": {p: v["sw"] for p, v in launches.items()},
+        "check": "exact equality with sw_batch_plain"}, {
+        "name": "bitonic_sort", "route": "cuda",
+        "source": "gappadder_tpu_torch/csrc/sort.cu",
+        "replaces": "gappadder_tpu/ops/psort.py:67",
+        "launches": launches["step"]["sort"], "max_abs_err": float(sort_err),
+        "ms": sort["step_ms"], "plain_ms": sort["step_plain_ms"],
+        "bound_ms": sort["step_bound_ms"], "bound_by": "bytes",
+        "library_ms": sort["step_library_ms"],
+        "launches_by_path": {p: v["sort"] for p, v in launches.items()},
+        "check": "exact equality with bitonic_sort_plain in every plane; "
+                 "times are the sums over one production step's sort "
+                 "calls (sort_time line)"}])
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def check_closure(contigs, glens, kset):
+    """Every gap has, for every (k, sub_k) setting, a contig that spans
+    the gap and k bases beside it."""
+    for s, (k, sub_k) in enumerate(kset):
+        for g, glen in enumerate(glens):
+            pre = f"{k}_{sub_k}_"
+            lens = [int(contigs.length[g, j])
+                    for j, nm in enumerate(contigs.names[g])
+                    if nm.startswith(pre)]
+            if not lens or max(lens) < glen + k:
+                raise AssertionError(f"Assembly batch: setting {s} did not "
+                                     f"close gap {g} ({lens} < {glen}+{k})")
+
+
+def sort_times(psort, step) -> dict:
+    """The sort kernel, the plain sort and (one key) torch.sort plus
+    gathers at each distinct call shape of one production step, on the
+    step's own inputs, with the bytes bound of each shape; and their
+    sums over the step's calls."""
+    calls: dict = {}
+    inner = psort.bitonic_sort
+
+    def record(ops, num_keys, stable=False):
+        ops = tuple(ops)
+        key = (tuple(ops[0].shape), num_keys, len(ops) - num_keys)
+        if key not in calls:
+            calls[key] = [0, [o.clone() for o in ops]]
+        calls[key][0] += 1
+        return inner(ops, num_keys, stable)
+
+    with patched(psort, "bitonic_sort", record):
+        step()
+    shapes = []
+    tot = {"step_ms": 0.0, "step_plain_ms": 0.0, "step_bound_ms": 0.0,
+           "step_library_ms": 0.0}
+    all_one_key = True
+    for (shape, nk, npay), (count, ops) in sorted(calls.items()):
+        elems = int(np.prod(shape))
+        bound = 2 * 8 * elems * (nk + npay) / HBM_BYTES_PER_S * 1e3
+        kern = cuda_ms(lambda: psort.bitonic_sort(ops, nk), 10)
+        plain = cuda_ms(lambda: psort.bitonic_sort_plain(ops, nk), 10)
+        lib = None
+        if nk == 1:
+            def library():
+                idx = torch.sort(ops[0], dim=-1, stable=True).indices
+                return [torch.gather(o, -1, idx) for o in ops]
+            lib = cuda_ms(library, 10)
+            tot["step_library_ms"] += count * lib
+        else:
+            all_one_key = False
+        shapes.append({"shape": list(shape), "keys": nk, "payloads": npay,
+                       "calls_per_step": count, "ms": kern, "plain_ms": plain,
+                       "library_ms": lib, "bound_ms": bound})
+        tot["step_ms"] += count * kern
+        tot["step_plain_ms"] += count * plain
+        tot["step_bound_ms"] += count * bound
+    if not all_one_key:
+        tot["step_library_ms"] = None
+    return dict(tot, calls_per_step=sum(c for c, _ in calls.values()),
+                shapes=shapes)
 
 
 def block_times(sl, dims, a):
@@ -360,8 +622,16 @@ def profile_step(sl, dims, a, top: int = 10):
     ops = sorted((e for e in prof.key_averages()
                   if e.key.startswith("aten::")),
                  key=lambda e: e.self_device_time_total, reverse=True)[:top]
+    # the hand-written kernels run under no aten operator: read them
+    # by their CUDA function names (csrc/sort.cu, csrc/sw.cu)
+    hand = {}
+    for label, tag in (("sort", "psort_"), ("sw", "sw_kernel")):
+        mine = [e for e in kernels if tag in e.name]
+        hand[label] = {"device_ms": sum(e.self_device_time_total
+                                        for e in mine) / 1e3,
+                       "cuda_launches": len(mine)}
     return {"device_busy_ms": busy_ms, "device_kernels": len(kernels),
-            "profiled_wall_ms": wall_ms,
+            "profiled_wall_ms": wall_ms, "hand_kernels": hand,
             "top_ops": [[e.key, e.self_device_time_total / 1e3, e.count]
                         for e in ops]}
 

@@ -115,8 +115,10 @@ def sort_kmers(limbs, extra=None):
     nl = limbs.shape[-1]
     ops = [limbs[..., l] for l in range(nl)]
     extras = list(extra) if extra is not None else []
-    res = psort.bitonic_sort(tuple(ops + extras), num_keys=nl)
-    return torch.stack(res[:nl], dim=-1), list(res[nl:])
+    res = psort.bitonic_sort(
+        tuple(ops + [e.to(torch.int64) for e in extras]), num_keys=nl)
+    return (torch.stack(res[:nl], dim=-1),
+            [r.to(e.dtype) for r, e in zip(res[nl:], extras)])
 
 
 def unique_mask(sorted_limbs):

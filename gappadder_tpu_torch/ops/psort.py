@@ -1,13 +1,18 @@
-"""Batched lexicographic sort over 1-4 key planes plus payloads.
+"""Batched lexicographic sort over 1-6 key planes plus payloads: the
+CUDA kernel and its plain PyTorch version.
 
-Counterpart of gappadder_tpu/ops/psort.py::bitonic_sort. The JAX
-package's default path runs `lax.sort` there (its Pallas bitonic kernel
-`_bitonic_call` is opt-in); this module is the counterpart of that
-default: an LSD chain of stable `torch.sort` passes over the key
-planes, last key first. The hand-written Hopper sort that replaces
-`_bitonic_call` belongs to the next slice of the port (its rows of
-38k-65k elements with up to 4 key planes do not fit one CTA's shared
-memory and need a design of their own).
+Counterpart of gappadder_tpu/ops/psort.py::bitonic_sort. On a CUDA
+tensor `bitonic_sort` launches the hand-written kernel `csrc/sort.cu`,
+the port of the Pallas bitonic network `_bitonic_call`: a bitonic
+network over rows padded to a power of two, with the input index as
+the last tie-break and the pad elements ordered after every real one,
+so its result is the stable sort's. What bounds it is bytes (every
+plane read and written once); see the source for the design.
+
+`bitonic_sort_plain` is an LSD chain of stable `torch.sort` passes over
+the key planes, last key first: the counterpart of the JAX package's
+default `lax.sort(is_stable=True)` branch. `bitonic_sort` runs it only
+for tensors on the CPU. Both give the same result in every plane.
 
 Keys and payloads are int64 tensors holding uint32 or int32 values
 (k-mer limbs are stored as int64, see ops/kmers.py), so int32 keys
@@ -16,24 +21,156 @@ order as signed and uint32 keys as unsigned with no bit mapping.
 
 from __future__ import annotations
 
+import ctypes
+
+import numpy as np
 import torch
 
+MAX_KEYS = 6            # csrc/sort.cu: MAX_KEYS, MAX_PLANES
+MAX_PLANES = 8
 
-def bitonic_sort(ops, num_keys: int, stable: bool = False):
-    """Sort a tuple of [..., N] tensors ascending along the last axis,
-    lexicographically by the first `num_keys` of them; the rest ride
-    along. Returns a tuple in the same order.
+# kernel launches since the last reset (chip_smoke.py reads this)
+launches = 0
+
+
+def _check(ops, num_keys: int) -> tuple:
+    ops = tuple(ops)
+    if not 1 <= num_keys <= len(ops):
+        raise ValueError(f"bitonic_sort: num_keys={num_keys} with "
+                         f"{len(ops)} planes")
+    shape = ops[0].shape
+    for o in ops:
+        if o.dtype != torch.int64:
+            raise TypeError(f"bitonic_sort: planes must be int64, got "
+                            f"{o.dtype}")
+        if o.shape != shape or o.dim() < 1:
+            raise ValueError("bitonic_sort: planes must share one shape "
+                             f"[..., N], got {[tuple(x.shape) for x in ops]}")
+    return ops
+
+
+def bitonic_sort_plain(ops, num_keys: int, stable: bool = False):
+    """Sort a tuple of int64 [..., N] tensors ascending along the last
+    axis, lexicographically by the first `num_keys` of them; the rest
+    ride along. Returns a tuple in the same order.
 
     The LSD chain of stable passes is stable, so `stable=True` (equal
     keys keep their input order, like `lax.sort(is_stable=True)`) costs
-    nothing extra; the flag is kept for the JAX signature.
-    """
+    nothing extra; the flag is kept for the JAX signature."""
     del stable
-    ops = tuple(ops)
-    assert 1 <= num_keys <= len(ops)
+    ops = _check(ops, num_keys)
     perm = None
     for l in range(num_keys - 1, -1, -1):
         key = ops[l] if perm is None else torch.gather(ops[l], -1, perm)
         _, idx = torch.sort(key, dim=-1, stable=True)
         perm = idx if perm is None else torch.gather(perm, -1, idx)
     return tuple(torch.gather(o, -1, perm) for o in ops)
+
+
+def bitonic_sort(ops, num_keys: int, stable: bool = False):
+    """Same contract as `bitonic_sort_plain`, always stable. CPU tensors
+    take the plain version; CUDA tensors launch `csrc/sort.cu` (int64
+    planes of one shape on one device, at most 6 keys and 8 planes) or
+    raise."""
+    global launches
+    ops = _check(ops, num_keys)
+    if all(o.device.type == "cpu" for o in ops):
+        return bitonic_sort_plain(ops, num_keys, stable)
+    dev = ops[0].device
+    if dev.type != "cuda" or any(o.device != dev for o in ops):
+        raise ValueError("bitonic_sort: all planes must be on one CUDA "
+                         f"device, got {[str(o.device) for o in ops]}")
+    if num_keys > MAX_KEYS or len(ops) > MAX_PLANES:
+        raise ValueError(f"bitonic_sort: at most {MAX_KEYS} keys and "
+                         f"{MAX_PLANES} planes, got {num_keys}/{len(ops)}")
+    shape = ops[0].shape
+    N = shape[-1]
+    B = 1
+    for s in shape[:-1]:
+        B *= s
+    if N >= 1 << 30 or B >= 1 << 31:
+        raise ValueError(f"bitonic_sort: shape {tuple(shape)} too large")
+    outs = [torch.empty((B, N), dtype=torch.int64, device=dev) for _ in ops]
+    if B == 0 or N == 0:
+        return tuple(o.reshape(shape) for o in outs)
+    # a view where the leading axes collapse to one stride, else a copy
+    ins = [o.reshape(B, N) for o in ops]
+    n = 1 << (N - 1).bit_length()
+    wk = torch.empty((num_keys, B, n), dtype=torch.int64, device=dev)
+    widx = torch.empty((B, n), dtype=torch.int32, device=dev)
+    desc = (ctypes.c_int64 * (4 * len(ops)))(
+        *[x.data_ptr() for x in ins], *[o.data_ptr() for o in outs],
+        *[x.stride(0) for x in ins], *[x.stride(1) for x in ins])
+
+    from . import cuda_build
+    fn = cuda_build.load("sort").psort_launch
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, ci, ci, ci, ci, vp, vp, vp]
+    fn.restype = ci
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(ctypes.addressof(desc), num_keys, len(ops), B, N,
+                 wk.data_ptr(), widx.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"bitonic_sort: kernel launch failed "
+                           f"(cudaError {err})")
+    launches += 1
+    return tuple(o.reshape(shape) for o in outs)
+
+
+FULL = 0xFFFFFFFF
+# entry_cap of the production step (64 gaps of up to 1000 bp, 100 bp
+# reads at step 4): 4 * 64 * 272 recruit entries
+PRODUCTION_ENTRY_CAP = 69632
+# name -> (shape, num_keys, payloads, key kind) for holding the kernel
+# against the plain version: keys and payloads 1-4 x 0-2, the k-mer
+# merge rows of k = 30 / 40 / 50 at the production gap batch, a DBG
+# node-cap row batch, the recruit join's 1-D row, the edge lengths,
+# rows of FULL keys and of ties, and negative keys
+SORT_CASES = {
+    **{f"k{k}p{p}": ((3, 1000), k, p, "limbs")
+       for k in range(1, 5) for p in range(3)},
+    "merge_k30": ((64, 38400), 2, 0, "limbs"),
+    "merge_k40": ((64, 33280), 3, 0, "limbs"),
+    "merge_k50": ((64, 28160), 4, 0, "limbs"),
+    "merge_k30_counts": ((64, 38400), 2, 1, "limbs"),
+    "node_cap": ((64, 16384), 4, 1, "limbs"),
+    "entry_cap_1d": ((PRODUCTION_ENTRY_CAP,), 4, 2, "limbs"),
+    "n0": ((4, 0), 2, 1, "limbs"),
+    "n1": ((4, 1), 2, 1, "limbs"),
+    "n127": ((5, 127), 3, 1, "limbs"),
+    "n4097": ((2, 4097), 2, 2, "limbs"),
+    "n1_1d": ((1,), 1, 1, "limbs"),
+    "all_full": ((4, 3000), 2, 1, "full"),
+    "all_ties": ((4, 3000), 3, 2, "ties"),
+    "negative": ((8, 2500), 2, 1, "signed"),
+    "composite_key": ((16, 8192), 1, 1, "wide"),
+}
+
+
+def sort_case(name: str, seed: int = 0):
+    """The planes and num_keys of SORT_CASES[name], as int64 numpy
+    arrays: uint32 limbs drawn from a small pool (so ties are common)
+    with FULL rows mixed in, all-FULL or all-equal rows, signed int32
+    keys, or wide non-negative keys above 2^32."""
+    shape, nk, npay, kind = SORT_CASES[name]
+    rng = np.random.default_rng(seed)
+    keys = []
+    for _ in range(nk):
+        if kind == "full":
+            k = np.full(shape, FULL, np.int64)
+        elif kind == "ties":
+            k = np.full(shape, 7, np.int64)
+        elif kind == "signed":
+            k = rng.integers(-(1 << 31), 1 << 31, shape).astype(np.int64)
+            k[..., ::3] = -1
+        elif kind == "wide":
+            k = rng.integers(0, 1 << 40, shape).astype(np.int64)
+        else:
+            pool = rng.integers(0, 1 << 32, 64).astype(np.int64)
+            k = pool[rng.integers(0, 64, shape)]
+            k[rng.random(shape) < 0.2] = FULL
+        keys.append(k)
+    pays = [rng.integers(-(1 << 31), 1 << 31, shape).astype(np.int64)
+            for _ in range(npay)]
+    return keys + pays, nk

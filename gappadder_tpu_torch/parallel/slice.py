@@ -25,7 +25,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from .. import dna
+from .. import dna, entry_device
+from ..io.fastq import ReadSet
 from ..ops import dbg, kmers, psort
 from ..ops.classify import build_gap_windows, classify_reads
 from ..ops.dbg import HIST_BUCKETS
@@ -150,7 +151,7 @@ def _group_rows(gap, row, hq, valid, dims: SliceDims):
     Gl, R = dims.gaps_per_shard, dims.reads_per_gap
     dev = gap.device
     lg = torch.div(gap, dims.n_shards, rounding_mode="floor")
-    key = torch.where(valid, lg, torch.full_like(lg, Gl))
+    key = torch.where(valid, lg, torch.full_like(lg, Gl)).to(torch.int64)
     key_s, grow_s, hq_s = psort.bitonic_sort(
         (key, row.to(torch.int64), hq.to(torch.int64)), num_keys=2)
     n = key.shape[0]
@@ -365,11 +366,7 @@ def run_step(dims: SliceDims, args, device="cuda"):
     whatever device the inputs were on. Returns the 12 outputs (counts,
     hist, n_recv, n_reads, rowtab, hqtab, useq, ulen, ucnt, score, qend,
     tend)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("run_step: no CUDA device is available; pass "
-                           "device='cpu' to run on the CPU")
-    args = inputs_from_numpy(args, device)
+    args = inputs_from_numpy(args, entry_device(device, "run_step"))
     with torch.no_grad():
         return _step(*args, dims=dims)
 
@@ -493,3 +490,42 @@ def example_data(n_shards: int = 1, gaps_per_shard: int = 2, seed: int = 0,
             tbl_hi, tbl_lo, tbl_row, tbl_side,
             reads_tbl, reads_len, flank_l, flank_r, flank_ll, flank_rl)
     return dims, args
+
+
+def example_reads(args, rowtab):
+    """What Collect would hand the Assembly and Pick stages for the
+    scenario of `example_data`: its read store as one library's
+    ReadSet, each gap's recruits (the rows of `rowtab`, the step's
+    per-gap read table) as per_gap lists of (lib, side, row), and the
+    gaps' flanks. Returns (readsets, per_gap, gaps)."""
+    reads_tbl, reads_len = np.asarray(args[22]), np.asarray(args[23])
+    n = len(reads_len)
+    rs = ReadSet(seq=reads_tbl, length=reads_len,
+                 qual=np.full(reads_tbl.shape, ord("I"), np.uint8),
+                 name_hash=np.arange(n, dtype=np.uint64),
+                 names=[b"r%d" % i for i in range(n)])
+    per_gap = [[(0, 0, int(r)) for r in row if r >= 0]
+               for row in np.asarray(rowtab)]
+    gaps = {"start": np.asarray(args[16]), "end": np.asarray(args[17]),
+            "flank_left": np.asarray(args[24]),
+            "flank_right": np.asarray(args[25])}
+    return [(rs, rs)], per_gap, gaps
+
+
+def example_fills(args, per_gap, step: int = 4):
+    """The planted bases of each gap of `example_data`'s scenario,
+    recovered from the reads alone: gap g's reads, in row order, tile
+    the truth at `step` from gap_start - margin (margin = read length
+    - 8). Returns one int8 array of gap_end - gap_start codes a gap."""
+    reads_tbl = np.asarray(args[22])
+    margin = reads_tbl.shape[1] - 8
+    fills = []
+    for g, rows in enumerate(per_gap):
+        glen = int(args[17][g]) - int(args[16][g])
+        region = np.full(2 * margin + glen, dna.N, np.int8)
+        for i, (_lib, _side, row) in enumerate(sorted(rows)):
+            a = i * step
+            n = min(reads_tbl.shape[1], len(region) - a)
+            region[a:a + n] = reads_tbl[row, :n]
+        fills.append(region[margin:margin + glen])
+    return fills

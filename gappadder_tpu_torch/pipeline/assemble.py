@@ -1,6 +1,7 @@
-"""The distinct-k-mer count path of the assembly stage (counterpart of
-gappadder_tpu/pipeline/assemble.py: `_merge_chunk(_impl)`,
-`_merge_chunk_nocnt(_impl)` and `filter_min_count`).
+"""The distinct-k-mer count path of the assembly stage and its result
+type (counterpart of gappadder_tpu/pipeline/assemble.py: `GapContigs`,
+`_merge_chunk(_impl)`, `_merge_chunk_nocnt(_impl)`, `filter_min_count`,
+`_next_pow2` and `MAX_AUTO_DISTINCT`).
 
 Each gap's table of distinct canonical k-mers is merged chunk by chunk
 with the k-mers of the next reads: concatenate, sort, keep the first of
@@ -12,11 +13,30 @@ saturation behaviour the caller detects through n == M.
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
 from ..ops import kmers, psort
 
 FULL = 0xFFFFFFFF
+# hard memory backstop for the auto-grown distinct-k-mer table
+# ([G, M, nl] sort buffers): 4M k-mers per gap ~ a >4 Mb unitig
+MAX_AUTO_DISTINCT = 1 << 22
+
+
+@dataclasses.dataclass
+class GapContigs:
+    """Per-gap contig sets (padded arrays + names)."""
+    seq: np.ndarray      # int8 [G, C, Lmax]
+    length: np.ndarray   # int32 [G, C]
+    count: np.ndarray    # int32 [G]
+    names: list[list[str]]  # [G][C] contig names ("<k>_<sub_k>_<i>")
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(int(n) - 1, 0).bit_length()
 
 
 def filter_min_count(acc, cnt, min_count: int):
@@ -53,7 +73,7 @@ def _merge_chunk_impl(acc, acc_cnt, limbs_new, cnt_new):
     both = torch.cat([acc, limbs_new], dim=1)
     cnts = torch.cat([acc_cnt, cnt_new], dim=1)
     res = psort.bitonic_sort(tuple(both[..., l] for l in range(nl))
-                             + (cnts,), num_keys=nl)
+                             + (cnts.to(torch.int64),), num_keys=nl)
     s = torch.stack(res[:nl], dim=-1)
     scnt = res[nl]
     first = kmers.unique_mask(s)

@@ -1,5 +1,6 @@
-"""The port's CUDA paths on a card: the SW kernel against its plain
-version, and the fused step on the card against its CPU run. These
+"""The port's CUDA paths on a card: the SW and sort kernels against
+their plain versions, and the fused step and the Assembly batch on the
+card against their CPU runs. These
 tests need a CUDA device and skip elsewhere; they import no JAX, so
 they also run where only the port's dependencies are installed:
 
@@ -10,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from gappadder_tpu_torch.ops import sw_cuda, sw_host
+from gappadder_tpu_torch.ops import psort, sw_cuda, sw_host
 from gappadder_tpu_torch.ops.sw_host import sw_test_pairs
 from gappadder_tpu_torch.parallel import slice as sl
 
@@ -57,3 +58,96 @@ def test_toy_step_on_card_matches_cpu(cuda):
     for a, b in zip(gpu, cpu):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(psort.SORT_CASES))
+def test_sort_kernel_matches_plain(cuda, case):
+    planes, nk = psort.sort_case(case, seed=len(case))
+    ops = [torch.from_numpy(x).to(cuda) for x in planes]
+    before = psort.launches
+    got = psort.bitonic_sort(ops, nk, stable=True)
+    torch.cuda.synchronize()
+    assert psort.launches == before + (1 if ops[0].numel() else 0)
+    want = psort.bitonic_sort_plain(ops, nk)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_sort_kernel_takes_strided_planes(cuda):
+    rng = np.random.default_rng(4)
+    both = torch.from_numpy(rng.integers(0, 9, (5, 300, 3))).to(cuda)
+    pay = torch.arange(300, device=cuda).expand(5, 300)
+    ops = tuple(both[..., l] for l in range(3)) + (pay,)
+    got = psort.bitonic_sort(ops, 3)
+    want = psort.bitonic_sort_plain(ops, 3)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_sort_kernel_refuses_wrong_dtype_and_mixed_devices(cuda):
+    k32 = torch.zeros(2, 8, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        psort.bitonic_sort((k32,), 1)
+    k = torch.zeros(2, 8, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError):
+        psort.bitonic_sort((k, k.cpu()), 1)
+
+
+def _toy_batch():
+    from gappadder_tpu_torch.config import Config
+    from gappadder_tpu_torch.pipeline import run
+    dims, args = sl.example_data(1, gaps_per_shard=3, gap_len=(64, 160))
+    rowtab = sl.run_step(dims, args, device="cpu")[4].numpy()
+    readsets, per_gap, gaps = sl.example_reads(args, rowtab)
+    R, md = run._bucket_of(max(len(p) for p in per_gap))
+    cfg = Config(draft_genome="d.fa", kmers=((17, 15), (21, 19)))
+    return cfg, readsets, per_gap, gaps, R, md, args[22].shape[1]
+
+
+@pytest.mark.gpu
+def test_assemble_batch_on_card_matches_cpu(cuda):
+    from gappadder_tpu_torch.pipeline import fused
+    cfg, readsets, per_gap, _gaps, R, md, L = _toy_batch()
+    batch = [0, 1, 2, -1]
+    sorts, sws = psort.launches, sw_cuda.launches
+    gpu = fused.assemble_batch(cfg, batch, per_gap, readsets, R, L, md,
+                               device=cuda)
+    assert psort.launches > sorts and sw_cuda.launches == sws
+    cpu = fused.assemble_batch(cfg, batch, per_gap, readsets, R, L, md,
+                               device="cpu")
+    for f in ("seq", "length", "count"):
+        np.testing.assert_array_equal(getattr(gpu, f), getattr(cpu, f))
+    assert gpu.names == cpu.names
+
+
+@pytest.mark.gpu
+def test_pick_on_card_matches_cpu(cuda):
+    from gappadder_tpu_torch.pipeline import fused, pick
+    cfg, readsets, per_gap, gaps, R, md, L = _toy_batch()
+    gc = fused.assemble_batch(cfg, [0, 1, 2], per_gap, readsets, R, L, md,
+                              device="cpu")
+    a = (gaps["flank_left"], gaps["flank_right"], gc.seq, gc.length,
+         gc.count)
+    before = sw_cuda.launches
+    gpu = pick.align_flanks_to_contigs(*a, min_score=30, device=cuda)
+    assert sw_cuda.launches >= before + 2
+    cpu = pick.align_flanks_to_contigs(*a, min_score=30, device="cpu")
+    assert gpu == cpu
+
+
+@pytest.mark.gpu
+def test_sw_pairs_refuses_flanks_beyond_the_kernel(cuda):
+    """A flank longer than the kernel's 1024 query rows raises on the
+    card; it never runs the plain version instead."""
+    from gappadder_tpu_torch.ops import swutil
+    q = np.zeros((2, 1100), np.int8)
+    ql = np.full(2, 1100, np.int32)
+    before = sw_cuda.launches
+    with pytest.raises(ValueError, match="Lq"):
+        swutil.sw_pairs(q, ql, q[:, :100], ql // 11, sw_host.BWA_PARAMS,
+                        "local", device=cuda)
+    assert sw_cuda.launches == before

@@ -1,6 +1,6 @@
 """The port stands alone: no module of gappadder_tpu_torch, and not
 chip_smoke.py, imports jax or anything of gappadder_tpu; and the entry
-point never falls back to the CPU on its own."""
+points never fall back to the CPU on their own."""
 
 import ast
 import pathlib
@@ -65,6 +65,57 @@ def test_run_step_refuses_without_gpu(monkeypatch):
 
 def test_kernel_modules_import_without_cuda():
     """Importing the kernel modules builds nothing and needs no nvcc."""
-    from gappadder_tpu_torch.ops import cuda_build, sw_cuda
-    assert sw_cuda.launches >= 0
+    from gappadder_tpu_torch.ops import cuda_build, psort, sw_cuda
+    assert sw_cuda.launches >= 0 and psort.launches >= 0
     assert cuda_build._loaded == {}
+    assert {p.stem for p in cuda_build.CSRC.glob("*.cu")} >= {"sw", "sort"}
+
+
+SLICE_MODULES = ["config", "utils.log", "io.fastq", "ops.swutil",
+                 "pipeline.fused", "pipeline.pick", "pipeline.run"]
+
+
+@pytest.mark.parametrize("mod", SLICE_MODULES)
+def test_slice_modules_are_scanned_and_import(mod):
+    import importlib
+    path = ROOT / "gappadder_tpu_torch" / (mod.replace(".", "/") + ".py")
+    assert path in PORT_FILES
+    importlib.import_module("gappadder_tpu_torch." + mod)
+
+
+def _slice_inputs():
+    from gappadder_tpu_torch.config import Config
+    from gappadder_tpu_torch.parallel import slice as sl
+    dims, args = sl.example_data(1, gaps_per_shard=1)
+    rowtab = sl.run_step(dims, args, device="cpu")[4].numpy()
+    readsets, per_gap, gaps = sl.example_reads(args, rowtab)
+    return Config(draft_genome="d.fa", kmers=((17, 15),)), readsets, \
+        per_gap, gaps, args[22].shape[1]
+
+
+@pytest.mark.parametrize("entry", ["sw_pairs", "assemble_batch",
+                                   "align_flanks_to_contigs"])
+def test_slice_entry_points_refuse_without_gpu(monkeypatch, entry):
+    from gappadder_tpu_torch.ops import swutil
+    from gappadder_tpu_torch.ops.sw_host import BWA_PARAMS
+    from gappadder_tpu_torch.pipeline import fused, pick
+    cfg, readsets, per_gap, gaps, L = _slice_inputs()
+    q = np.zeros((2, 8), np.int8)
+    ln = np.full(2, 8, np.int32)
+    contigs = fused.assemble_batch(cfg, [0], per_gap, readsets, 64, L, 1024,
+                                   device="cpu")
+    calls = {
+        "sw_pairs": lambda **kw: swutil.sw_pairs(q, ln, q, ln, BWA_PARAMS,
+                                                 "local", **kw),
+        "assemble_batch": lambda **kw: fused.assemble_batch(
+            cfg, [0], per_gap, readsets, 64, L, 1024, **kw),
+        "align_flanks_to_contigs": lambda **kw: pick.align_flanks_to_contigs(
+            gaps["flank_left"], gaps["flank_right"], contigs.seq,
+            contigs.length, contigs.count, min_score=30, **kw),
+    }
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry](device="cuda")
+    assert calls[entry](device="cpu") is not None

@@ -1,6 +1,9 @@
 """Port parity: gappadder_tpu_torch.ops.psort.bitonic_sort against
-`lax.sort` on the cases of tests/test_psort.py. The port's sort is
-stable, so payloads are compared in full against `is_stable=True`."""
+`lax.sort` on the cases of tests/test_psort.py, and the port's plain
+sort (the version CPU tensors take) against the JAX package's Pallas
+bitonic kernel `_bitonic_call`, run in interpret mode with the stable
+index tie-break. The port's sort is stable, so payloads are compared in
+full against `is_stable=True`."""
 
 import numpy as np
 import pytest
@@ -8,6 +11,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from gappadder_tpu.ops import psort as jpsort
 from gappadder_tpu_torch.ops import psort
 
 
@@ -73,3 +77,56 @@ def test_one_dim_and_small_n():
     pay = np.arange(300, dtype=np.int32)
     for g, w in zip(_run([flat, pay], 1), _oracle([flat, pay], 1)):
         np.testing.assert_array_equal(g, w)
+
+
+def _pallas(ops, num_keys):
+    res = jpsort.bitonic_sort(tuple(jnp.asarray(o) for o in ops),
+                              num_keys=num_keys, stable=True, interpret=True)
+    return [np.asarray(r).astype(np.int64) for r in res]
+
+
+@pytest.mark.parametrize("shape,nl,npay,signed", [
+    ((2, 300), 1, 1, False), ((3, 517), 2, 0, False), ((2, 257), 3, 1, False),
+    ((1, 1000), 4, 2, False), ((2, 300), 1, 2, True), ((2, 129), 2, 1, True),
+    ((700,), 2, 1, False)])
+def test_plain_matches_pallas_kernel(shape, nl, npay, signed):
+    """uint32 limbs (FULL mixed in) or signed int32 keys, held in int64
+    on the port's side, 1-4 keys, N not a power of two."""
+    rng = np.random.default_rng(sum(shape) + 10 * nl + npay)
+    if signed:
+        keys = [rng.integers(-40, 40, shape).astype(np.int32)
+                for _ in range(nl)]
+    else:
+        pool = rng.integers(0, 1 << 32, 16, dtype=np.uint32)
+        keys = [pool[rng.integers(0, 16, shape)] for _ in range(nl)]
+        keys[0][rng.random(shape) < 0.25] = 0xFFFFFFFF
+    pays = [rng.integers(-1000, 1000, shape).astype(np.int32)
+            for _ in range(npay)]
+    ops = keys + pays
+    want = _pallas(ops, nl)
+    got = psort.bitonic_sort_plain(
+        tuple(torch.from_numpy(o.astype(np.int64)) for o in ops), nl)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+@pytest.mark.parametrize("case", ["k2p1", "n0", "n1", "n127", "all_full",
+                                  "all_ties", "negative"])
+def test_plain_matches_lax_sort_on_kernel_cases(case):
+    """The cases the card holds the kernel to, at their CPU-sized
+    shapes, against lax.sort(is_stable=True)."""
+    planes, nk = psort.sort_case(case, seed=3)
+    got = psort.bitonic_sort(tuple(torch.from_numpy(p) for p in planes), nk)
+    # the JAX side holds keys as uint32 (limbs) or int32 (signed)
+    as32 = [p.astype(np.uint32 if i < nk and p.min(initial=0) >= 0
+                     else np.int32) for i, p in enumerate(planes)]
+    for g, w in zip(got, _oracle(as32, nk)):
+        assert g.dtype == torch.int64
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+def test_sort_refuses_non_int64_planes():
+    with pytest.raises(TypeError):
+        psort.bitonic_sort((torch.zeros(4, dtype=torch.int32),), 1)
+    with pytest.raises(ValueError):
+        psort.bitonic_sort((torch.zeros(4, dtype=torch.int64),), 2)

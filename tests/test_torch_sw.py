@@ -75,3 +75,38 @@ def test_wrapper_refuses_other_devices():
     ln = torch.ones(2, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
         sw_cuda.sw_batch_cuda(q, ln, q, ln)
+
+
+def _ragged_pairs(seed, n=12, max_q=100, max_t=120):
+    """Ragged query/target lists over two query-length buckets, each
+    target holding a mutated copy of part of its query."""
+    rng = np.random.default_rng(seed)
+    qs, ts = [], []
+    for _ in range(n):
+        q = rng.integers(0, 4, int(rng.integers(1, max_q))).astype(np.int8)
+        t = rng.integers(0, 4, int(rng.integers(1, max_t))).astype(np.int8)
+        k = min(len(q), len(t)) // 2
+        if k >= 2:
+            off = int(rng.integers(0, len(t) - k + 1))
+            t[off:off + k] = q[:k]
+            t[off + k // 2] = (t[off + k // 2] + 1) % 4
+        qs.append(q)
+        ts.append(t)
+    return qs, ts
+
+
+@pytest.mark.parametrize("mode", ["local", "fit"])
+def test_swutil_matches_jax(mode):
+    """Pick's bucketed dispatch (`sw_ragged` over `sw_pairs`), on the
+    CPU, against the JAX package's on its XLA path."""
+    from gappadder_tpu.ops import swutil as jswutil
+    from gappadder_tpu.ops.sw_host import BWA_PARAMS as JBWA
+    from gappadder_tpu_torch.ops import swutil
+    qs, ts = _ragged_pairs(3 + len(mode))
+    want = jswutil.sw_ragged(qs, ts, JBWA, mode, use_pallas=False)
+    got = swutil.sw_ragged(qs, ts, sw_host.BWA_PARAMS, mode, device="cpu")
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+    if mode == "local":
+        assert (got[0] > 0).all()
