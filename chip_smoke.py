@@ -154,6 +154,24 @@ def patched(module, name, value):
         setattr(module, name, old)
 
 
+@contextlib.contextmanager
+def recording_sorts(psort):
+    """Route psort.bitonic_sort through the kernel as before, keeping the
+    number of calls and a copy of the last call's planes at each
+    distinct (shape, keys, payloads): yields {key: [calls, planes]}."""
+    calls: dict = {}
+    inner = psort.bitonic_sort
+
+    def record(ops, num_keys, stable=False):
+        ops = tuple(ops)
+        key = (tuple(ops[0].shape), num_keys, len(ops) - num_keys)
+        calls[key] = [calls.get(key, [0])[0] + 1, [o.clone() for o in ops]]
+        return inner(ops, num_keys, stable)
+
+    with patched(psort, "bitonic_sort", record):
+        yield calls
+
+
 def same_contigs(a, b) -> bool:
     return (all(np.array_equal(getattr(a, f), getattr(b, f))
                 for f in ("seq", "length", "count")) and a.names == b.names)
@@ -167,10 +185,11 @@ def main() -> int:
     from gappadder_tpu_torch.config import Config
     from gappadder_tpu_torch.ops import cuda_build, psort, sw_cuda, sw_host
     from gappadder_tpu_torch.ops import swutil
-    from gappadder_tpu_torch.ops.sw_host import (BWA_PARAMS, SWParams,
-                                                 sw_test_pairs)
+    from gappadder_tpu_torch.ops.sw_host import BWA_PARAMS, SWParams
     from gappadder_tpu_torch.parallel import slice as sl
     from gappadder_tpu_torch.pipeline import fused, run
+    from gappadder_tpu_torch.testcases import (SORT_CASES, sort_case,
+                                               sw_test_pairs)
     from gappadder_tpu_torch.utils import log
 
     dev = torch.device("cuda", 0)
@@ -216,12 +235,12 @@ def main() -> int:
 
     # ---- phase 3: sort kernel == plain on the card -------------------------
     sort_err = 0
-    for name in psort.SORT_CASES:
-        planes, nk = psort.sort_case(name, seed=len(name))
+    for name in SORT_CASES:
+        planes, nk = sort_case(name, seed=len(name))
         ops = [torch.from_numpy(x).to(dev) for x in planes]
         sort_err = max(sort_err, check_sort(psort, ops, nk))
-    emit(phase="sort_check", cases=len(psort.SORT_CASES),
-         names=list(psort.SORT_CASES), max_abs_err=sort_err)
+    emit(phase="sort_check", cases=len(SORT_CASES),
+         names=list(SORT_CASES), max_abs_err=sort_err)
 
     # ---- phase 4: toy step on the card == the port's CPU run ---------------
     dims, args = sl.example_data(1, gaps_per_shard=2)
@@ -324,7 +343,9 @@ def main() -> int:
     assert cfg.tpu.gap_batch == len(batch)
     sw_cuda.launches = psort.launches = 0
     log.reset_cap_events()
-    contigs = fused.assemble_batch(cfg, batch, per_gap, readsets, R, L, md)
+    with recording_sorts(psort) as shipped_sorts:
+        contigs = fused.assemble_batch(cfg, batch, per_gap, readsets, R, L,
+                                       md)
     launches["assemble_batch"] = {"sw": sw_cuda.launches,
                                   "sort": psort.launches}
     if launches["assemble_batch"]["sort"] < 1:
@@ -336,18 +357,37 @@ def main() -> int:
     # a small starting distinct-k-mer table: the caps have to grow
     log.reset_cap_events()
     small_md = 1024
-    grown = fused.assemble_batch(cfg, batch, per_gap, readsets, R, L,
-                                 small_md)
+    with recording_sorts(psort) as grow_sorts:
+        grown = fused.assemble_batch(cfg, batch, per_gap, readsets, R, L,
+                                     small_md)
     grow_events = {k: log.cap_events(k) for k in grow_keys}
     if not any(grow_events.values()):
         raise AssertionError("no cap grew from max_distinct=1024")
     check_closure(grown, glens, cfg.kmers)
+    # every call shape of both batches: the kernel == plain on the
+    # batch's own planes; then both batches with the plain sort give
+    # the same contigs and names
+    asm_shapes = []
+    for calls in (shipped_sorts, grow_sorts):
+        for (shape, nk, npay), (count, ops) in sorted(calls.items()):
+            sort_err = max(sort_err, check_sort(psort, ops, nk))
+            asm_shapes.append([list(shape), nk, npay, count])
+    del shipped_sorts, grow_sorts
+    with patched(psort, "bitonic_sort", psort.bitonic_sort_plain):
+        for got, start in ((contigs, md), (grown, small_md)):
+            want = fused.assemble_batch(cfg, batch, per_gap, readsets, R, L,
+                                        start)
+            if not same_contigs(got, want):
+                raise AssertionError(f"Assembly batch from md={start} "
+                                     "differs between the sort kernel and "
+                                     "the plain sort")
     emit(phase="assembly", toy_equal_cpu=True, n_gaps=len(batch), R=R,
          max_distinct=md, contigs_per_gap=[int(contigs.count.min()),
                                            int(contigs.count.max())],
          launches=launches["assemble_batch"], shipped_events=shipped_events,
          grow_from_max_distinct=small_md, grow_events=grow_events,
-         closed_every_gap_every_setting=True)
+         closed_every_gap_every_setting=True,
+         sort_shapes_equal_plain=asm_shapes, contigs_equal_plain_sort=True)
 
     # ---- phase 8: Pick ------------------------------------------------------
     store = {g: run._tuple_from_list(
@@ -366,21 +406,15 @@ def main() -> int:
                 pick_times[key] += (time.perf_counter() - t) * 1e3
         return wrapper
 
-    def run_pick():
-        fills, exts = {}, {}
-        for key in pick_times:
-            pick_times[key] = 0.0
-        t = time.perf_counter()
-        with patched(swutil, "sw_pairs", timed(swutil.sw_pairs, "sw_ms")), \
-                patched(sw_host, "alignment_stats_batch",
-                        timed(sw_host.alignment_stats_batch, "host_ms")):
-            run._pick_gaps(cfg, gaps, batch, store, fills, exts,
-                           cfg.pick_min_score_round1, False)
-        return fills, dict(pick_times,
-                           total_ms=(time.perf_counter() - t) * 1e3)
-
+    fills, exts = {}, {}
     sw_cuda.launches = psort.launches = 0
-    fills, _ = run_pick()
+    t = time.perf_counter()
+    with patched(swutil, "sw_pairs", timed(swutil.sw_pairs, "sw_ms")), \
+            patched(sw_host, "alignment_stats_batch",
+                    timed(sw_host.alignment_stats_batch, "host_ms")):
+        run._pick_gaps(cfg, gaps, batch, store, fills, exts,
+                       cfg.pick_min_score_round1, False)
+    pick_ms = dict(pick_times, total_ms=(time.perf_counter() - t) * 1e3)
     launches["pick"] = {"sw": sw_cuda.launches, "sort": psort.launches}
     if launches["pick"]["sw"] < 1:
         raise AssertionError("Pick did not launch the SW kernel")
@@ -472,7 +506,6 @@ def main() -> int:
     t = time.perf_counter()
     fused.assemble_batch(cfg, batch, per_gap, readsets, R, L, md)
     asm_ms = (time.perf_counter() - t) * 1e3
-    _, pick_ms = run_pick()
     emit(phase="stage_time", assemble_batch_ms=asm_ms,
          assemble_gaps_per_s=len(batch) / (asm_ms / 1e3),
          pick_ms=pick_ms, pick_gaps_per_s=len(batch) /
@@ -538,18 +571,7 @@ def sort_times(psort, step) -> dict:
     gathers at each distinct call shape of one production step, on the
     step's own inputs, with the bytes bound of each shape; and their
     sums over the step's calls."""
-    calls: dict = {}
-    inner = psort.bitonic_sort
-
-    def record(ops, num_keys, stable=False):
-        ops = tuple(ops)
-        key = (tuple(ops[0].shape), num_keys, len(ops) - num_keys)
-        if key not in calls:
-            calls[key] = [0, [o.clone() for o in ops]]
-        calls[key][0] += 1
-        return inner(ops, num_keys, stable)
-
-    with patched(psort, "bitonic_sort", record):
+    with recording_sorts(psort) as calls:
         step()
     shapes = []
     tot = {"step_ms": 0.0, "step_plain_ms": 0.0, "step_bound_ms": 0.0,

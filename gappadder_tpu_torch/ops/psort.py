@@ -23,7 +23,6 @@ from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 MAX_KEYS = 6            # csrc/sort.cu: MAX_KEYS, MAX_PLANES
@@ -116,61 +115,3 @@ def bitonic_sort(ops, num_keys: int, stable: bool = False):
                            f"(cudaError {err})")
     launches += 1
     return tuple(o.reshape(shape) for o in outs)
-
-
-FULL = 0xFFFFFFFF
-# entry_cap of the production step (64 gaps of up to 1000 bp, 100 bp
-# reads at step 4): 4 * 64 * 272 recruit entries
-PRODUCTION_ENTRY_CAP = 69632
-# name -> (shape, num_keys, payloads, key kind) for holding the kernel
-# against the plain version: keys and payloads 1-4 x 0-2, the k-mer
-# merge rows of k = 30 / 40 / 50 at the production gap batch, a DBG
-# node-cap row batch, the recruit join's 1-D row, the edge lengths,
-# rows of FULL keys and of ties, and negative keys
-SORT_CASES = {
-    **{f"k{k}p{p}": ((3, 1000), k, p, "limbs")
-       for k in range(1, 5) for p in range(3)},
-    "merge_k30": ((64, 38400), 2, 0, "limbs"),
-    "merge_k40": ((64, 33280), 3, 0, "limbs"),
-    "merge_k50": ((64, 28160), 4, 0, "limbs"),
-    "merge_k30_counts": ((64, 38400), 2, 1, "limbs"),
-    "node_cap": ((64, 16384), 4, 1, "limbs"),
-    "entry_cap_1d": ((PRODUCTION_ENTRY_CAP,), 4, 2, "limbs"),
-    "n0": ((4, 0), 2, 1, "limbs"),
-    "n1": ((4, 1), 2, 1, "limbs"),
-    "n127": ((5, 127), 3, 1, "limbs"),
-    "n4097": ((2, 4097), 2, 2, "limbs"),
-    "n1_1d": ((1,), 1, 1, "limbs"),
-    "all_full": ((4, 3000), 2, 1, "full"),
-    "all_ties": ((4, 3000), 3, 2, "ties"),
-    "negative": ((8, 2500), 2, 1, "signed"),
-    "composite_key": ((16, 8192), 1, 1, "wide"),
-}
-
-
-def sort_case(name: str, seed: int = 0):
-    """The planes and num_keys of SORT_CASES[name], as int64 numpy
-    arrays: uint32 limbs drawn from a small pool (so ties are common)
-    with FULL rows mixed in, all-FULL or all-equal rows, signed int32
-    keys, or wide non-negative keys above 2^32."""
-    shape, nk, npay, kind = SORT_CASES[name]
-    rng = np.random.default_rng(seed)
-    keys = []
-    for _ in range(nk):
-        if kind == "full":
-            k = np.full(shape, FULL, np.int64)
-        elif kind == "ties":
-            k = np.full(shape, 7, np.int64)
-        elif kind == "signed":
-            k = rng.integers(-(1 << 31), 1 << 31, shape).astype(np.int64)
-            k[..., ::3] = -1
-        elif kind == "wide":
-            k = rng.integers(0, 1 << 40, shape).astype(np.int64)
-        else:
-            pool = rng.integers(0, 1 << 32, 64).astype(np.int64)
-            k = pool[rng.integers(0, 64, shape)]
-            k[rng.random(shape) < 0.2] = FULL
-        keys.append(k)
-    pays = [rng.integers(-(1 << 31), 1 << 31, shape).astype(np.int64)
-            for _ in range(npay)]
-    return keys + pays, nk

@@ -236,35 +236,3 @@ def alignment_stats(q, t, p: SWParams, mode: str, qend: int, tend: int):
     qs, ts, cigar = traceback(q, t, p, mode, qend, tend)
     m_sum = sum(ln for op, ln in cigar if op == "M")
     return qs, ts, m_sum
-
-
-def sw_test_pairs(seed, B=40, Lq=24, Lt=48):
-    """Query/target code pairs for holding SW implementations against
-    each other: ragged, partly related pairs plus the edge rows 0-6
-    (all-N target, all-N query, poly-A ties, one repeated base, a
-    length-0 query, a length-0 target and a full-length pair). B >= 7.
-
-    Returns (q int8 [B, Lq], qlen int32 [B], t int8 [B, Lt], tlen)."""
-    rng = np.random.default_rng(seed)
-    q = rng.integers(0, 4, (B, Lq)).astype(np.int8)
-    t = rng.integers(0, 4, (B, Lt)).astype(np.int8)
-    ql = rng.integers(1, Lq + 1, B).astype(np.int32)
-    tl = rng.integers(1, Lt + 1, B).astype(np.int32)
-    for b in range(B):
-        k = int(min(ql[b], tl[b]) // 2)
-        if k >= 2:
-            off = int(rng.integers(0, tl[b] - k + 1))
-            chunk = q[b, :k].copy()
-            mut = rng.random(k) < 0.1
-            chunk[mut] = rng.integers(0, 4, int(mut.sum()))
-            t[b, off:off + k] = chunk
-    t[0] = 4
-    q[1] = 4
-    q[2] = 0
-    t[2] = 0
-    q[3] = q[3, 0]
-    t[3] = q[3, 0]
-    ql[4] = 0
-    tl[5] = 0
-    ql[6], tl[6] = Lq, Lt
-    return q, ql, t, tl

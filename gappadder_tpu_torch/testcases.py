@@ -1,0 +1,99 @@
+"""Inputs for holding the hand-written kernels against their plain
+versions: SW query/target pairs and the sort's cases. Used by the tests
+and by chip_smoke.py; no pipeline path imports this module."""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .pipeline.assemble import FULL
+
+# entry_cap of the production step (64 gaps of up to 1000 bp, 100 bp
+# reads at step 4): 4 * 64 * 272 recruit entries
+PRODUCTION_ENTRY_CAP = 69632
+# name -> (shape, num_keys, payloads, key kind): keys and payloads
+# 1-4 x 0-2, the k-mer merge rows of k = 30 / 40 / 50 at the production
+# gap batch, a DBG node-cap row batch, the DBG join of 4 limbs plus the
+# node/query tag (5 keys), the recruit join's 1-D row, rows of N = 0, 1,
+# 127 and 4097, rows of FULL keys and of ties, negative keys, and wide
+# composite keys above 2^32
+SORT_CASES = {
+    **{f"k{k}p{p}": ((3, 1000), k, p, "limbs")
+       for k in range(1, 5) for p in range(3)},
+    "merge_k30": ((64, 38400), 2, 0, "limbs"),
+    "merge_k40": ((64, 33280), 3, 0, "limbs"),
+    "merge_k50": ((64, 28160), 4, 0, "limbs"),
+    "merge_k30_counts": ((64, 38400), 2, 1, "limbs"),
+    "node_cap": ((64, 16384), 4, 1, "limbs"),
+    "dbg_join_k5": ((64, 16384), 5, 1, "limbs"),
+    "entry_cap_1d": ((PRODUCTION_ENTRY_CAP,), 4, 2, "limbs"),
+    "n0": ((4, 0), 2, 1, "limbs"),
+    "n1": ((4, 1), 2, 1, "limbs"),
+    "n127": ((5, 127), 3, 1, "limbs"),
+    "n4097": ((2, 4097), 2, 2, "limbs"),
+    "n1_1d": ((1,), 1, 1, "limbs"),
+    "all_full": ((4, 3000), 2, 1, "full"),
+    "all_ties": ((4, 3000), 3, 2, "ties"),
+    "negative": ((8, 2500), 2, 1, "signed"),
+    "composite_key": ((16, 8192), 1, 1, "wide"),
+}
+
+
+def sort_case(name: str, seed: int = 0):
+    """The planes and num_keys of SORT_CASES[name], as int64 numpy
+    arrays: uint32 limbs drawn from a small pool (so ties are common)
+    with FULL rows mixed in, all-FULL or all-equal rows, signed int32
+    keys, or wide non-negative keys above 2^32."""
+    shape, nk, npay, kind = SORT_CASES[name]
+    rng = np.random.default_rng(seed)
+    keys = []
+    for _ in range(nk):
+        if kind == "full":
+            k = np.full(shape, FULL, np.int64)
+        elif kind == "ties":
+            k = np.full(shape, 7, np.int64)
+        elif kind == "signed":
+            k = rng.integers(-(1 << 31), 1 << 31, shape).astype(np.int64)
+            k[..., ::3] = -1
+        elif kind == "wide":
+            k = rng.integers(0, 1 << 40, shape).astype(np.int64)
+        else:
+            pool = rng.integers(0, 1 << 32, 64).astype(np.int64)
+            k = pool[rng.integers(0, 64, shape)]
+            k[rng.random(shape) < 0.2] = FULL
+        keys.append(k)
+    pays = [rng.integers(-(1 << 31), 1 << 31, shape).astype(np.int64)
+            for _ in range(npay)]
+    return keys + pays, nk
+
+
+def sw_test_pairs(seed, B=40, Lq=24, Lt=48):
+    """Query/target code pairs for holding SW implementations against
+    each other: ragged, partly related pairs plus the edge rows 0-6
+    (all-N target, all-N query, poly-A ties, one repeated base, a
+    length-0 query, a length-0 target and a full-length pair). B >= 7.
+
+    Returns (q int8 [B, Lq], qlen int32 [B], t int8 [B, Lt], tlen)."""
+    rng = np.random.default_rng(seed)
+    q = rng.integers(0, 4, (B, Lq)).astype(np.int8)
+    t = rng.integers(0, 4, (B, Lt)).astype(np.int8)
+    ql = rng.integers(1, Lq + 1, B).astype(np.int32)
+    tl = rng.integers(1, Lt + 1, B).astype(np.int32)
+    for b in range(B):
+        k = int(min(ql[b], tl[b]) // 2)
+        if k >= 2:
+            off = int(rng.integers(0, tl[b] - k + 1))
+            chunk = q[b, :k].copy()
+            mut = rng.random(k) < 0.1
+            chunk[mut] = rng.integers(0, 4, int(mut.sum()))
+            t[b, off:off + k] = chunk
+    t[0] = 4
+    q[1] = 4
+    q[2] = 0
+    t[2] = 0
+    q[3] = q[3, 0]
+    t[3] = q[3, 0]
+    ql[4] = 0
+    tl[5] = 0
+    ql[6], tl[6] = Lq, Lt
+    return q, ql, t, tl

@@ -12,8 +12,8 @@ import pytest
 import torch
 
 from gappadder_tpu_torch.ops import psort, sw_cuda, sw_host
-from gappadder_tpu_torch.ops.sw_host import sw_test_pairs
 from gappadder_tpu_torch.parallel import slice as sl
+from gappadder_tpu_torch.testcases import SORT_CASES, sort_case, sw_test_pairs
 
 MODES = ["local", "overlap", "fit", "extend"]
 
@@ -61,9 +61,9 @@ def test_toy_step_on_card_matches_cpu(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", list(psort.SORT_CASES))
+@pytest.mark.parametrize("case", list(SORT_CASES))
 def test_sort_kernel_matches_plain(cuda, case):
-    planes, nk = psort.sort_case(case, seed=len(case))
+    planes, nk = sort_case(case, seed=len(case))
     ops = [torch.from_numpy(x).to(cuda) for x in planes]
     before = psort.launches
     got = psort.bitonic_sort(ops, nk, stable=True)

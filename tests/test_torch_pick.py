@@ -16,6 +16,7 @@ from gappadder_tpu_torch import dna
 from gappadder_tpu_torch.config import Config
 from gappadder_tpu_torch.parallel import slice as sl
 from gappadder_tpu_torch.pipeline import fused, pick, run
+from gappadder_tpu_torch.testcases import sw_test_pairs
 
 KSET = ((17, 15), (21, 19))
 
@@ -149,7 +150,7 @@ def test_host_traceback_matches_jax(mode):
     against the JAX package's, from the endpoints the SW pass gives."""
     from gappadder_tpu.ops import sw_host as jsw_host
     from gappadder_tpu_torch.ops import sw_host, swutil
-    q, ql, t, tl = sw_host.sw_test_pairs(11, B=16, Lq=30, Lt=60)
+    q, ql, t, tl = sw_test_pairs(11, B=16, Lq=30, Lt=60)
     ql, tl = np.maximum(ql, 1), np.maximum(tl, 1)
     s, qe, te = swutil.sw_pairs(q, ql, t, tl, sw_host.BWA_PARAMS, mode,
                                 device="cpu")

@@ -13,6 +13,7 @@ import torch
 
 from gappadder_tpu.ops import psort as jpsort
 from gappadder_tpu_torch.ops import psort
+from gappadder_tpu_torch.testcases import sort_case
 
 
 def _oracle(ops, num_keys):
@@ -115,7 +116,7 @@ def test_plain_matches_pallas_kernel(shape, nl, npay, signed):
 def test_plain_matches_lax_sort_on_kernel_cases(case):
     """The cases the card holds the kernel to, at their CPU-sized
     shapes, against lax.sort(is_stable=True)."""
-    planes, nk = psort.sort_case(case, seed=3)
+    planes, nk = sort_case(case, seed=3)
     got = psort.bitonic_sort(tuple(torch.from_numpy(p) for p in planes), nk)
     # the JAX side holds keys as uint32 (limbs) or int32 (signed)
     as32 = [p.astype(np.uint32 if i < nk and p.min(initial=0) >= 0

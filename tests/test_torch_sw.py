@@ -12,7 +12,7 @@ import torch
 from gappadder_tpu.ops import sw_pallas, sw_xla
 from gappadder_tpu.ops.sw_host import SWParams as JSWParams
 from gappadder_tpu_torch.ops import sw_cuda, sw_host
-from gappadder_tpu_torch.ops.sw_host import sw_test_pairs as _pairs
+from gappadder_tpu_torch.testcases import sw_test_pairs as _pairs
 
 MODES = ["local", "overlap", "fit", "extend"]
 PARAMS = [(1, -4, 7, 1), (1, -1, 1, 1), (2, -3, 5, 2)]
