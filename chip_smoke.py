@@ -3,16 +3,19 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from `gappadder_tpu_torch/csrc/` (the
-SW kernel `sw.cu` and the sort `sort.cu`), holds each against its plain
-PyTorch version on the card, and drives the port's paths at the
-production size: the fused collect->assemble->pick step
-(`parallel.slice.run_step`: 64 gaps, six (k, sub_k) settings, 300 bp
-flanks, 100 bp reads, 100-1000 bp gaps), the shipped Assembly batch
-(`pipeline.fused.assemble_batch`) on that scenario's reads, and the
-Pick stage (`pipeline.run._pick_gaps`) on its contigs. It checks their
-outputs, fires the capacity checks and the cap growth, and times the
-step, the kernels, the Assembly batch and Pick with CUDA events and
-host clocks.
+SW kernel `sw.cu`, the sort `sort.cu` and the probe kernels
+`probes.cu`), holds each against its plain PyTorch version on the card,
+and drives the port's paths at the production size: the fused
+collect->assemble->pick step (`parallel.slice.run_step`: 64 gaps, six
+(k, sub_k) settings, 300 bp flanks, 100 bp reads, 100-1000 bp gaps),
+the shipped Assembly batch (`pipeline.fused.assemble_batch`) on that
+scenario's reads, and the Pick stage (`pipeline.run._pick_gaps`) on its
+contigs. It checks their outputs, fires the capacity checks and the cap
+growth, and times the step, the kernels, the Assembly batch and Pick
+with CUDA events and host clocks. Last, the probes path: the probe
+modules' `main()`s run as their JAX scripts in `scripts/` do, each
+probe kernel is held to its plain twin (also at a width that fills the
+card) and timed against its bound.
 
 Prints JSON lines along the way; the line before the last is the
 `kernels` record and the last line is
@@ -45,6 +48,35 @@ PRODUCTION = dict(gaps_per_shard=64, read_len=100, step=4, flank_len=300,
 SW_OPS_PER_CELL = 11
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 N_WINDOWS, STEPS_PER_WINDOW = 5, 5
+# the probe kernels on the probes path, by launch counter: the name in
+# the kernels line and the TPU kernel each replaces
+PROBE_KERNELS = {
+    "dynamic_sublane": ("exp_dynamic_sublane",
+                        "scripts/tpu_kernel_experiments.py:21"),
+    "int16_loop": ("exp_int16_loop", "scripts/tpu_kernel_experiments.py:40"),
+    "int32_argmax": ("exp_int32_loop_with_argmax",
+                     "scripts/tpu_kernel_experiments.py:85"),
+    "swprobe": ("swprobe.run", "scripts/swprobe.py:80"),
+    "int16_elementwise": ("int16_repro.elementwise",
+                          "scripts/mosaic_int16_repro.py:51"),
+    "int16_roll": ("int16_repro.roll", "scripts/mosaic_int16_repro.py:55"),
+}
+# int32 (or int16x2) operations an element and step needs, counted from
+# the code, each max(a + b, c) as one (Hopper's DPX issues it as one
+# instruction). The int16 loop: e - 1, max(h - 1, e'), max(above + 1,
+# e), the floor: 4 a lane word, two elements a word in int16x2. The
+# argmax loop: 3 for e and h, the float cast, and the column reduction's
+# combine (max, compare, two selects) once an element.
+OPS_LOOP_WORD = 4
+OPS_ARGMAX = 8
+# swprobe's step by level: 1 is max(A - 1, tr) and row 0's select; 2
+# adds B 2, C's select and max 2, A's max 1; 3 adds D's select and
+# max(C - 1) 2, E's max 1, sc's compare and select and A's add-max 3,
+# B's compare, and, select 3, C's max 1, E's select 1. The final
+# A + B + C + D + E and column max: 5 an element, once.
+SW_LEVEL_OPS = {0: 0, 1: 2, 2: 7, 3: 18}
+YARDSTICKS = ((1, False), (1, True), (2, True))   # (lanes, dpx)
+FILL_TILES_PER_SM = 4
 
 
 def emit(**kw):
@@ -191,6 +223,19 @@ def main() -> int:
     from gappadder_tpu_torch.testcases import (SORT_CASES, sort_case,
                                                sw_test_pairs)
     from gappadder_tpu_torch.utils import log
+    from gappadder_tpu_torch import probes
+    from gappadder_tpu_torch.probes import (int16_repro, kernel_experiments,
+                                            swprobe)
+
+    def reset_counts():
+        """Every kernel's launch count to 0, just before a path runs."""
+        sw_cuda.launches = psort.launches = 0
+        for k in probes.launches:
+            probes.launches[k] = 0
+
+    def read_counts() -> dict:
+        return {"sw": sw_cuda.launches, "sort": psort.launches,
+                **probes.launches}
 
     dev = torch.device("cuda", 0)
     card = smi("name,power.limit")
@@ -267,11 +312,11 @@ def main() -> int:
     # ---- phase 5: the production step --------------------------------------
     pdims, pargs = sl.example_data(1, **PRODUCTION)
     pin = sl.inputs_from_numpy(pargs, dev)
-    sw_cuda.launches = psort.launches = 0
+    reset_counts()
     out = sl.run_step(pdims, pin)
     torch.cuda.synchronize()
-    launches = {"step": {"sw": sw_cuda.launches, "sort": psort.launches}}
-    if min(launches["step"].values()) < 1:
+    launches = {"step": read_counts()}
+    if min(launches["step"]["sw"], launches["step"]["sort"]) < 1:
         raise AssertionError(f"production step launches {launches['step']}")
     res = [o.cpu().numpy() for o in out]
     counts, ulen, sc = res[0], res[7], res[9]
@@ -341,13 +386,12 @@ def main() -> int:
     batch = list(range(pdims.n_gaps))
     L = pargs[22].shape[1]
     assert cfg.tpu.gap_batch == len(batch)
-    sw_cuda.launches = psort.launches = 0
+    reset_counts()
     log.reset_cap_events()
     with recording_sorts(psort) as shipped_sorts:
         contigs = fused.assemble_batch(cfg, batch, per_gap, readsets, R, L,
                                        md)
-    launches["assemble_batch"] = {"sw": sw_cuda.launches,
-                                  "sort": psort.launches}
+    launches["assemble_batch"] = read_counts()
     if launches["assemble_batch"]["sort"] < 1:
         raise AssertionError("assemble_batch did not launch the sort kernel")
     grow_keys = ("kmer_table_grow", "dbg_node_cap_grow", "unitig_slots_grow",
@@ -407,7 +451,7 @@ def main() -> int:
         return wrapper
 
     fills, exts = {}, {}
-    sw_cuda.launches = psort.launches = 0
+    reset_counts()
     t = time.perf_counter()
     with patched(swutil, "sw_pairs", timed(swutil.sw_pairs, "sw_ms")), \
             patched(sw_host, "alignment_stats_batch",
@@ -415,7 +459,7 @@ def main() -> int:
         run._pick_gaps(cfg, gaps, batch, store, fills, exts,
                        cfg.pick_min_score_round1, False)
     pick_ms = dict(pick_times, total_ms=(time.perf_counter() - t) * 1e3)
-    launches["pick"] = {"sw": sw_cuda.launches, "sort": psort.launches}
+    launches["pick"] = read_counts()
     if launches["pick"]["sw"] < 1:
         raise AssertionError("Pick did not launch the SW kernel")
     missing = [g for g in batch if g not in fills]
@@ -492,12 +536,21 @@ def main() -> int:
     ops_ms = live_cells * SW_OPS_PER_CELL / ops_s * 1e3
     bytes_ms = (B * (Lq + Lt) + 8 * B + 12 * B) / HBM_BYTES_PER_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
+    # the diagonals each block sweeps (csrc/sw.cu: d = 2..dmax) and its
+    # threads, to read the kernel's time per thread and diagonal on an
+    # SM beside the probes' time per thread and step
+    dmax = torch.minimum(qrows + torch.clamp(ptl, min=0).long(),
+                         torch.full_like(qrows, Lq + Lt))
+    diagonals = int(torch.clamp(dmax - 1, min=0).sum())
+    threads = max(32, (Lq + 31) // 32 * 32)
     emit(phase="sw_time", sw_ms=sw_ms, plain_ms=plain_ms, pairs=B,
          cells=cells, live_cells=live_cells,
          gcups_live=live_cells / (sw_ms / 1e3) / 1e9,
          gcups_all=cells / (sw_ms / 1e3) / 1e9,
          bound_ms=bound_ms, bound_ops_ms=ops_ms, bound_bytes_ms=bytes_ms,
-         smi=card)
+         block_diagonals=diagonals, threads_per_block=threads,
+         ps_per_thread_diagonal_per_sm=sw_ms * 1e9 * props.
+         multi_processor_count / (diagonals * threads), smi=card)
 
     sort = sort_times(psort, step)
     emit(phase="sort_time", **sort, smi=card)
@@ -524,6 +577,50 @@ def main() -> int:
          busy_share=prof["device_busy_ms"] / prof["profiled_wall_ms"],
          plain_sort=prof_plain, smi=card)
 
+    # ---- phase 10: the probes path (the probe scripts of scripts/) ------
+    # each probe module's main() on the card, as its JAX script runs
+    reset_counts()
+    path = {"kernel_experiments": kernel_experiments.main(),
+            "swprobe": swprobe.main(verify=True),
+            "int16_repro": int16_repro.main()}
+    torch.cuda.synchronize()
+    launches["probes"] = read_counts()
+    idle = [k for k in PROBE_KERNELS if launches["probes"][k] < 1]
+    if idle:
+        raise AssertionError(f"the probes path did not launch {idle}")
+    ke_out = path["kernel_experiments"]
+    zeros = torch.zeros((kernel_experiments.S, kernel_experiments.TB),
+                        dtype=torch.int32, device=dev)
+    if not torch.equal(ke_out["int16_loop"],
+                       kernel_experiments.exp_int16_loop_plain(zeros)):
+        raise AssertionError("exp_int16_loop on the script's input != plain")
+    for g, w in zip(ke_out["int32_argmax"],
+                    kernel_experiments.exp_int32_loop_with_argmax_plain(zeros)):
+        if not torch.equal(g, w):
+            raise AssertionError("exp_int32_loop_with_argmax on the "
+                                 "script's input != plain")
+    pcheck = check_probes(kernel_experiments, swprobe, int16_repro, dev,
+                          FILL_TILES_PER_SM * props.multi_processor_count)
+    emit(phase="probe_check", launches=launches["probes"], **pcheck,
+         script_outputs_equal_plain=True)
+    ptimes = probe_times(kernel_experiments, swprobe, int16_repro, dev,
+                         props.multi_processor_count, ops_s)
+    emit(phase="probe_time", **ptimes, smi=card)
+
+    probe_rows = [{
+        "name": name, "route": "cuda",
+        "source": "gappadder_tpu_torch/csrc/probes.cu", "replaces": where,
+        "launches": launches["probes"][key],
+        "max_abs_err": float(pcheck["max_abs_err"][key]),
+        **{k: ptimes[key][k] for k in ("ms", "device_ms", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms")},
+        "launches_by_path": {p: v[key] for p, v in launches.items()},
+        "check": "exact equality with the plain twin (probe_check line); "
+                 "times at the script's shape (probe_time line), where the "
+                 "dependent chain of steps (the copies: the launch) sets "
+                 "the time far above the throughput bound; rows 4-6 also "
+                 "at 4 tiles an SM there"}
+        for key, (name, where) in PROBE_KERNELS.items()]
     emit(kernels=[{
         "name": "sw_batch_cuda", "route": "cuda",
         "source": "gappadder_tpu_torch/csrc/sw.cu",
@@ -544,7 +641,7 @@ def main() -> int:
         "launches_by_path": {p: v["sort"] for p, v in launches.items()},
         "check": "exact equality with bitonic_sort_plain in every plane; "
                  "times are the sums over one production step's sort "
-                 "calls (sort_time line)"}])
+                 "calls (sort_time line)"}, *probe_rows])
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -601,6 +698,198 @@ def sort_times(psort, step) -> dict:
         tot["step_library_ms"] = None
     return dict(tot, calls_per_step=sum(c for c, _ in calls.values()),
                 shapes=shapes)
+
+
+def check_probes(ke, sp, ir, dev, fill_tiles: int) -> dict:
+    """Every probe kernel against its plain twin on the card, exactly:
+    at the scripts' shapes on seeded inputs (the int16 loop where int16
+    wraps, the argmax loop with ties, every swprobe level), then rows
+    4-6 at `fill_tiles` tiles of 128 columns. Returns, by launch
+    counter, the cases run and the max abs difference (0); raises on the
+    first difference."""
+    from gappadder_tpu_torch.testcases import (ARGMAX_INPUTS,
+                                               INT16_LOOP_INPUTS, probe_input)
+    keys = (*PROBE_KERNELS, "loop_yardstick")
+    cases = dict.fromkeys(keys, 0)
+    errs = dict.fromkeys(keys, 0)
+
+    def same(key, got, want):
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want):
+            if g.shape != w.shape or g.dtype != w.dtype:
+                raise AssertionError(f"probe {key}: kernel gives "
+                                     f"{g.dtype}{tuple(g.shape)}, plain "
+                                     f"{w.dtype}{tuple(w.shape)}")
+            err = int((g.long() - w.long()).abs().max())
+            if err:
+                raise AssertionError(f"probe {key}: kernel != plain at "
+                                     f"{tuple(w.shape)}, max abs err {err}")
+            errs[key] = max(errs[key], err)
+        cases[key] += 1
+
+    def on(a):
+        return torch.from_numpy(a).to(dev)
+
+    t = on(probe_input("beyond_int16", (64, 128), 3))
+    for j in (17, 0, 63, 64, 70, -1, -5, -70):
+        idx = torch.tensor([[j]], dtype=torch.int32, device=dev)
+        same("dynamic_sublane", ke.exp_dynamic_sublane(t, idx),
+             ke.exp_dynamic_sublane_plain(t, idx))
+    W = 128 * fill_tiles
+    for shape in ((ke.S, ke.TB), (ke.S, W)):
+        for name in INT16_LOOP_INPUTS:
+            x = on(probe_input(name, shape, 1))
+            same("int16_loop", ke.exp_int16_loop(x), ke.exp_int16_loop_plain(x))
+        # within +-16000 nothing wraps, so the yardsticks equal the loop
+        x = on(probe_input("beyond_int16", shape, 9) // 100)
+        want = ke.exp_int16_loop_plain(x)
+        for lanes, dpx in YARDSTICKS:
+            same("loop_yardstick", ke.recurrence_yardstick(x, lanes=lanes,
+                                                           dpx=dpx), want)
+        for name in ARGMAX_INPUTS:
+            x = on(probe_input(name, shape, 2))
+            same("int32_argmax", ke.exp_int32_loop_with_argmax(x),
+                 ke.exp_int32_loop_with_argmax_plain(x))
+    for x in (sp.script_input(1), sp.script_input(2, tiles=fill_tiles)):
+        x = on(x)
+        for level in sp.LEVELS:
+            same("swprobe", sp.run(x, level), sp.run_plain(x, level))
+    for x in (ir.script_input(), probe_input("int16_full", ir.SHAPE, 4),
+              probe_input("int16_full", (7, 33), 5)):
+        x = on(x)
+        same("int16_elementwise", ir.elementwise(x), ir.elementwise_plain(x))
+        same("int16_roll", ir.roll(x), ir.roll_plain(x))
+    return {"cases": cases, "max_abs_err": errs}
+
+
+def bound(ops: float, nbytes: float, ops_s: float) -> dict:
+    """The least time for `ops` int32 operations and `nbytes` of device
+    memory traffic, and which of the two sets it."""
+    ops_ms = ops / ops_s * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms), "bound_ops_ms": ops_ms,
+            "bound_bytes_ms": bytes_ms,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def probe_times(ke, sp, ir, dev, sms: int, ops_s: float) -> dict:
+    """Each probe kernel at its script's shape: ms by CUDA events over
+    back-to-back launches (at the small shapes that is the host's issue
+    time of a wrapper call), the kernel's own device ms (profiler), its
+    plain twin's ms, the one PyTorch call that computes the same where
+    there is one, and its bound. Rows 4-6 (and
+    the int16 loop's yardsticks) also at 4 tiles of 128 columns an SM,
+    per step and, for swprobe, per tile-step and level. At the script's
+    small shapes the dependent chain of steps (or, for the copies, the
+    launch) sets the time, not the throughput bound."""
+    fill = FILL_TILES_PER_SM * sms
+    res = {}
+
+    def timed(kern, plain, ops, nbytes, tag, library=None, plain_reps=1,
+              reps=50):
+        kern()
+        return {"ms": cuda_ms(kern, reps),
+                "device_ms": kernel_device_ms(kern, reps, tag),
+                "plain_ms": cuda_ms(plain, plain_reps),
+                "library_ms": cuda_ms(library, reps) if library else None,
+                **bound(ops, nbytes, ops_s)}
+
+    t = torch.from_numpy(ke.script_table()).to(dev)
+    idx = torch.tensor([[ke.SUBLANE_ROW]], dtype=torch.int32, device=dev)
+    jl = idx.reshape(1).long()
+    W = t.shape[1]
+    res["dynamic_sublane"] = dict(timed(
+        lambda: ke.exp_dynamic_sublane(t, idx),
+        lambda: ke.exp_dynamic_sublane_plain(t, idx), 0, 4 + 8 * W,
+        "dynamic_sublane_kernel",
+        library=lambda: torch.index_select(t, 0, jl), plain_reps=50),
+        shape=list(t.shape))
+
+    steps = ke.STEPS
+
+    def loop_case(kern, plain, S, W, ops_el, tag, extra_bytes=0):
+        x = torch.zeros((S, W), dtype=torch.int32, device=dev)
+        r = timed(lambda: kern(x), lambda: plain(x), S * W * steps * ops_el,
+                  8 * S * W + extra_bytes, tag, reps=50 if W == ke.TB else 10)
+        return dict(r, shape=[S, W], ns_per_step=r["ms"] * 1e6 / steps,
+                    device_ns_per_step=r["device_ms"] * 1e6 / steps)
+
+    for key, kern, plain, ops_el, tag, extra in (
+            ("int16_loop", ke.exp_int16_loop, ke.exp_int16_loop_plain,
+             OPS_LOOP_WORD / 2, "loop_kernel", 0),
+            ("int32_argmax", ke.exp_int32_loop_with_argmax,
+             ke.exp_int32_loop_with_argmax_plain, OPS_ARGMAX,
+             "int32_argmax_kernel", 4)):
+        res[key] = loop_case(kern, plain, ke.S, ke.TB, ops_el, tag,
+                             extra * ke.TB)
+        res[key]["fill"] = loop_case(kern, plain, ke.S, ke.TB * fill, ops_el,
+                                     tag, extra * ke.TB * fill)
+    yard = {}
+    for lanes, dpx in ((2, False),) + YARDSTICKS:
+        f = lambda x, lanes=lanes, dpx=dpx: ke.recurrence_yardstick(
+            x, lanes=lanes, dpx=dpx)
+        for shape, W in (("script", ke.TB), ("fill", ke.TB * fill)):
+            r = loop_case(f, ke.exp_int16_loop_plain, ke.S, W,
+                          OPS_LOOP_WORD / lanes, "loop_kernel")
+            yard[f"lanes{lanes}_dpx{int(dpx)}_{shape}"] = {
+                k: r[k] for k in ("ms", "device_ms", "ns_per_step",
+                                  "device_ns_per_step", "bound_ms")}
+    res["loop_yardsticks"] = yard
+    res["int16x2_gain_fill"] = (yard["lanes1_dpx0_fill"]["ms"] /
+                                yard["lanes2_dpx0_fill"]["ms"])
+
+    levels = {}
+    for tiles in (sp.NBT, fill):
+        x = torch.from_numpy(sp.script_input(0, tiles=tiles)).to(dev)
+        S, W = x.shape
+        for level in sp.LEVELS:
+            r = timed(lambda: sp.run(x, level), lambda: sp.run_plain(x, level),
+                      S * W * (sp.NSTEP * SW_LEVEL_OPS[level] + 5),
+                      4 * S * W + 4 * W, "swprobe_kernel",
+                      reps=50 if tiles == sp.NBT else 10)
+            # per step, from the kernel's device time
+            per = r["device_ms"] * 1e6 / sp.NSTEP
+            levels[f"level{level}_{'script' if tiles == sp.NBT else 'fill'}"] \
+                = dict(r, shape=[S, W], ns_per_step=r["ms"] * 1e6 / sp.NSTEP,
+                       device_ns_per_step=per,
+                       device_ns_per_tile_step=per / tiles,
+                       device_ns_per_tile_step_per_sm=per / tiles * sms,
+                       device_ps_per_thread_step_per_sm=per * 1e3 * sms /
+                       (S * W))
+    res["swprobe"] = dict(levels["level3_script"], levels=levels)
+
+    x = torch.from_numpy(ir.script_input()).to(dev)
+    n = x.numel()
+    res["int16_elementwise"] = dict(timed(
+        lambda: ir.elementwise(x), lambda: ir.elementwise_plain(x), n * 3 / 2,
+        4 * n, "int16_elementwise_kernel", plain_reps=50),
+        shape=list(x.shape))
+    res["int16_roll"] = dict(timed(
+        lambda: ir.roll(x), lambda: ir.roll_plain(x), 0, 4 * n,
+        "int16_roll_kernel", library=lambda: torch.roll(x, 1, 0),
+        plain_reps=50), shape=list(x.shape))
+    return res
+
+
+def kernel_device_ms(fn, reps: int, tag: str) -> float:
+    """Mean device milliseconds of the CUDA kernels whose name holds
+    `tag` over `reps` calls of fn, by torch.profiler (over the launches
+    it recorded: it can miss the first one of a profiling run)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    mine = [e for e in prof.events()
+            if e.device_type == DeviceType.CUDA and tag in e.name]
+    if not reps // 2 <= len(mine) <= reps:
+        raise AssertionError(f"profiler saw {len(mine)} {tag} launches of "
+                             f"{reps}")
+    return sum(e.self_device_time_total for e in mine) / 1e3 / len(mine)
 
 
 def block_times(sl, dims, a):

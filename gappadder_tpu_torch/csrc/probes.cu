@@ -1,0 +1,462 @@
+// The probe kernels that designed the SW kernel, ported to Hopper. They
+// replace the five Pallas kernels of scripts/:
+//   probe_dynamic_sublane   scripts/tpu_kernel_experiments.py::exp_dynamic_sublane
+//   probe_int16_loop        scripts/tpu_kernel_experiments.py::exp_int16_loop
+//   probe_int32_argmax      scripts/tpu_kernel_experiments.py::exp_int32_loop_with_argmax
+//   probe_swprobe           scripts/swprobe.py::make_kernel / run (levels 0-3)
+//   probe_int16_elementwise scripts/mosaic_int16_repro.py (kernel `elementwise`)
+//   probe_int16_roll        scripts/mosaic_int16_repro.py (kernel `roll`)
+// and compute exactly what those kernels compute (the plain versions are
+// in gappadder_tpu_torch/probes/).
+//
+// Design: the shift along axis 0 (pltpu.roll(v, 1, 0), row r takes row
+// r - 1 and row 0 takes the last row) is the SW recurrence's dependency
+// on the row above, so it is mapped as csrc/sw.cu maps it: one thread per
+// row, the block's threads column by column (thread t holds row t % S of
+// the block's column t / S), the row above's value through a
+// double-buffered shared array, and one __syncthreads a step. Columns are
+// independent, so a block holds a few of them (S x cols threads, at most
+// 1024) and the grid splits the rest. The TPU kernels carried their state
+// through VMEM scratch across a sequential grid; here it stays in
+// registers for the whole loop.
+//
+// What bounds them: the loops (rows 4-6 of PERF.md's kernel table) do a
+// few int32 (or int16x2) ALU operations per element and step on data that
+// never leaves the SM, so at a size that fills the card they are bound by
+// operations, and at the scripts' single-tile shapes (one or two blocks
+// an SM at most) by the dependent chain of steps: each step waits for the
+// barrier and for the row above's value of the step before. The two
+// copies (dynamic_sublane, int16_roll) and int16_elementwise are bound by
+// bytes, and at the scripts' shapes by the launch.
+//
+// int32 additions go through unsigned arithmetic so they wrap as XLA's
+// do; the int16x2 SIMD intrinsics wrap per halfword as int16 does.
+
+#include <algorithm>
+#include <climits>
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+__device__ __forceinline__ int wadd(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
+}
+
+// ---- exp_dynamic_sublane: out[0, :] = t[j, :] with j read on the device.
+// The index is normalised as the JAX kernel's ref slice does it in
+// interpret mode: a negative j counts from the end, then the start is
+// clamped into the array as XLA clamps a dynamic slice.
+__global__ void dynamic_sublane_kernel(const int* __restrict__ idx,
+                                       const int* __restrict__ t, int R,
+                                       int W, int* __restrict__ out) {
+  int j = idx[0];
+  if (j < 0) j += R;
+  j = min(max(j, 0), R - 1);
+  const int* row = t + static_cast<size_t>(j) * W;
+  for (int c = blockIdx.x * blockDim.x + threadIdx.x; c < W;
+       c += gridDim.x * blockDim.x)
+    out[c] = row[c];
+}
+
+// ---- exp_int16_loop: `steps` steps of
+//   e = max(h - 1, e - 1); h = max(roll(h, 1, 0) + 1, e); h = max(h, -16384)
+// from h = e = int16(x), out = int32(h). LANES = 2 packs two int16
+// columns into one 32-bit register and runs the int16x2 SIMD
+// intrinsics (per-halfword, wrapping: int16's own arithmetic): that is
+// the port of exp_int16_loop. Three yardsticks for the SW redesign share
+// the source and are timed beside it, equal to it only where nothing
+// wraps: LANES = 1 runs the recurrence on one int32 column a thread, and
+// DPX writes each max(a + b, c) as one DPX intrinsic (__viaddmax_s16x2 /
+// __viaddmax_s32). CUDA 12.8's header lowers the 16-bit one on sm_90 to
+// add.s16x2 + max.s16x2, which wrap; the port keeps the plain intrinsics,
+// whose per-halfword wrap is documented.
+template <int LANES>
+struct Lane;
+
+template <>
+struct Lane<2> {
+  static __device__ __forceinline__ unsigned load(const int* p) {
+    return (static_cast<unsigned>(p[0]) & 0xffffu) |
+           (static_cast<unsigned>(p[1]) << 16);
+  }
+  static __device__ __forceinline__ void store(int* p, unsigned v) {
+    p[0] = static_cast<int16_t>(v & 0xffffu);
+    p[1] = static_cast<int16_t>(v >> 16);
+  }
+  static __device__ __forceinline__ unsigned add(unsigned a, int b) {
+    return __vadd2(a, (static_cast<unsigned>(b) & 0xffffu) * 0x10001u);
+  }
+  static __device__ __forceinline__ unsigned max(unsigned a, unsigned b) {
+    return __vmaxs2(a, b);
+  }
+  static __device__ __forceinline__ unsigned splat(int v) {
+    return (static_cast<unsigned>(v) & 0xffffu) * 0x10001u;
+  }
+  static __device__ __forceinline__ unsigned dpx_addmax(unsigned a, int b,
+                                                        unsigned c) {
+    return __viaddmax_s16x2(a, splat(b), c);
+  }
+};
+
+template <>
+struct Lane<1> {
+  static __device__ __forceinline__ unsigned load(const int* p) {
+    return static_cast<unsigned>(p[0]);
+  }
+  static __device__ __forceinline__ void store(int* p, unsigned v) {
+    p[0] = static_cast<int>(v);
+  }
+  static __device__ __forceinline__ unsigned add(unsigned a, int b) {
+    return a + static_cast<unsigned>(b);
+  }
+  static __device__ __forceinline__ unsigned max(unsigned a, unsigned b) {
+    return static_cast<unsigned>(::max(static_cast<int>(a),
+                                       static_cast<int>(b)));
+  }
+  static __device__ __forceinline__ unsigned splat(int v) {
+    return static_cast<unsigned>(v);
+  }
+  static __device__ __forceinline__ unsigned dpx_addmax(unsigned a, int b,
+                                                        unsigned c) {
+    return static_cast<unsigned>(__viaddmax_s32(static_cast<int>(a), b,
+                                                static_cast<int>(c)));
+  }
+};
+
+// max(a + b, c): two instructions, or one DPX instruction (sm_90)
+template <int LANES, bool DPX>
+__device__ __forceinline__ unsigned addmax(unsigned a, int b, unsigned c) {
+  using L = Lane<LANES>;
+  if constexpr (DPX) return L::dpx_addmax(a, b, c);
+  else return L::max(L::add(a, b), c);
+}
+
+template <int LANES, bool DPX>
+__global__ void loop_kernel(const int* __restrict__ x, int S, int W,
+                            int steps, int* __restrict__ out) {
+  using L = Lane<LANES>;
+  extern __shared__ unsigned sh_loop[];            // [2][nt] h of the step
+  const int nt = blockDim.x;
+  const int tid = threadIdx.x;
+  const int r = tid % S;
+  const int col = (blockIdx.x * (nt / S) + tid / S) * LANES;
+  const bool live = col < W;
+  const int above = r == 0 ? tid + S - 1 : tid - 1;
+  const size_t at = static_cast<size_t>(r) * W + col;
+  const unsigned floor_ = L::splat(-16384);
+  unsigned h = live ? L::load(x + at) : 0u;
+  unsigned e = h;
+  for (int s = 0; s < steps; ++s) {
+    unsigned* buf = sh_loop + (s & 1) * nt;
+    buf[tid] = h;
+    e = addmax<LANES, DPX>(h, -1, L::add(e, -1));
+    __syncthreads();
+    h = L::max(addmax<LANES, DPX>(buf[above], 1, e), floor_);
+  }
+  if (live) L::store(out + at, h);
+}
+
+// ---- exp_int32_loop_with_argmax: `steps` steps of
+//   e = max(h - 1, e - 1); h = max(roll(h, 1, 0) + 1, e)
+//   m = max over rows of h; am = first row of the max of float32(h)
+//   bs = max(bs, m)
+// from h = e = x, bs = 0; out = h + bs, amax = the last step's am. The
+// JAX kernel drops am (it adds am * 0); returning the last one keeps the
+// per-step cross-row argmax, the point of the probe, from being removed.
+// Each step's column reduction runs as warp shuffles (S is a multiple of
+// 32, so a warp lies in one column) and one partial per warp in a
+// double-buffered shared slot; row 0 of each column folds the partials of
+// step s in step s + 1, after that step's one barrier.
+__global__ void int32_argmax_kernel(const int* __restrict__ x, int S, int W,
+                                    int steps, int* __restrict__ out,
+                                    int* __restrict__ amax) {
+  extern __shared__ int sh_am[];
+  const int nt = blockDim.x;
+  const int cols = nt / S;
+  const int nw = S >> 5;                            // warps per column
+  int* sh = sh_am;                                  // [2][nt] h
+  int* pm = sh + 2 * nt;                            // [2][cols * nw] max
+  float* pv = reinterpret_cast<float*>(pm + 2 * cols * nw);  // max float
+  int* pi = reinterpret_cast<int*>(pv + 2 * cols * nw);      // its row
+  int* cbs = pi + 2 * cols * nw;                    // [cols] final bs
+
+  const int tid = threadIdx.x;
+  const int r = tid % S;
+  const int c = tid / S;
+  const int col = blockIdx.x * cols + c;
+  const bool live = col < W;
+  const int above = r == 0 ? tid + S - 1 : tid - 1;
+  const size_t at = static_cast<size_t>(r) * W + col;
+  const int slot0 = c * nw;
+  int h = live ? x[at] : 0;
+  int e = h;
+  int bs = 0, am = 0;
+
+  auto fold = [&](int slot) {       // row 0: the column's max and argmax
+    const int* m = pm + slot * cols * nw + slot0;
+    const float* v = pv + slot * cols * nw + slot0;
+    const int* i = pi + slot * cols * nw + slot0;
+    int bm = m[0];
+    float bv = v[0];
+    int bi = i[0];
+    for (int w = 1; w < nw; ++w) {
+      bm = max(bm, m[w]);
+      if (v[w] > bv) { bv = v[w]; bi = i[w]; }
+    }
+    bs = max(bs, bm);
+    am = bi;
+  };
+
+  for (int s = 0; s < steps; ++s) {
+    int* buf = sh + (s & 1) * nt;
+    buf[tid] = h;
+    e = max(wadd(h, -1), wadd(e, -1));
+    __syncthreads();
+    h = max(wadd(buf[above], 1), e);
+    if (r == 0 && s > 0) fold((s - 1) & 1);
+    int m = h, i = r;
+    float v = __int2float_rn(h);
+    for (int o = 16; o > 0; o >>= 1) {
+      const int m2 = __shfl_down_sync(0xffffffffu, m, o);
+      const float v2 = __shfl_down_sync(0xffffffffu, v, o);
+      const int i2 = __shfl_down_sync(0xffffffffu, i, o);
+      m = max(m, m2);
+      if (v2 > v || (v2 == v && i2 < i)) { v = v2; i = i2; }
+    }
+    if ((r & 31) == 0) {
+      const int k = (s & 1) * cols * nw + slot0 + (r >> 5);
+      pm[k] = m;
+      pv[k] = v;
+      pi[k] = i;
+    }
+  }
+  __syncthreads();
+  if (r == 0) {
+    fold((steps - 1) & 1);
+    cbs[c] = bs;
+    if (live) amax[col] = am;
+  }
+  __syncthreads();
+  if (live) out[at] = wadd(h, cbs[c]);
+}
+
+// ---- swprobe: the SW-shaped ladder. Per tile of columns, `nstep` steps
+// in `nstep / chunk` grid steps of `chunk` (the JAX kernel's fori_loop,
+// whose index s restarts at 0 in every grid step). The rolled buffer
+// rb = concat(x, x) of the JAX kernel is rolled once a step from the
+// first step on, so at step g its rows S..2S-1 are x[(r - g - 1) mod S]:
+// the kernel reads that row of x from shared memory instead of moving a
+// buffer. LEVEL 0 is the loop alone (that read, kept live, and the
+// barrier); 1 adds A's update; 2 adds B and C and the exchange of C;
+// 3 is the full SW-like step (D and E exchanged as well). A level's
+// state that it does not update stays at its initial x + k. The JAX
+// kernel rolls E after updating it, so a thread publishes its
+// pre-roll E (E1) and takes the row above's at the start of the next
+// step, together with that row's C and D.
+template <int LEVEL>
+__global__ void swprobe_kernel(const int* __restrict__ x, int S, int W,
+                               int nstep, int chunk, int* __restrict__ out) {
+  extern __shared__ int sh_sw[];
+  const int nt = blockDim.x;
+  const int cols = nt / S;
+  int* xs = sh_sw;                 // [cols][S] the block's columns of x
+  int* sc = xs + nt;               // [2][nt] C of the step
+  int* sd = sc + 2 * nt;           // [2][nt] D
+  int* se = sd + 2 * nt;           // [2][nt] E before the roll
+  int* cmax = se + 2 * nt;         // [cols]
+
+  const int tid = threadIdx.x;
+  const int r = tid % S;
+  const int c = tid / S;
+  const int col = blockIdx.x * cols + c;
+  const bool live = col < W;
+  const int above = r == 0 ? tid + S - 1 : tid - 1;
+  const int* xcol = xs + c * S;
+  const int xv = live ? x[static_cast<size_t>(r) * W + col] : 0;
+  xs[tid] = xv;
+  int A = xv, B = wadd(xv, 1), C = wadd(xv, 2), D = wadd(xv, 3),
+      E = wadd(xv, 4);
+  // the state before step 0 stands in slot 1, "the step before"
+  sc[nt + tid] = C;
+  sd[nt + tid] = D;
+  if (r == 0) cmax[c] = INT_MIN;
+  __syncthreads();
+
+  int k = r;                        // row of x that tr reads: (r - g - 1) mod S
+  int s = 0;                        // the fori_loop index
+  for (int g = 0; g < nstep; ++g) {
+    k = k == 0 ? S - 1 : k - 1;
+    const int tr = xcol[k];
+    const int prev = ((g + 1) & 1) * nt;          // slot of step g - 1
+    if (LEVEL == 0) asm volatile("" ::"r"(tr));
+    if (LEVEL >= 3 && g > 0) E = r == 0 ? C : se[prev + above];
+    if (LEVEL >= 1) {
+      A = max(wadd(A, -1), tr);
+      if (r == 0) A = tr;
+    }
+    if (LEVEL >= 2) {
+      B = max(wadd(B, -2), wadd(A, -7));
+      C = max(r == 0 ? A : sc[prev + above], B);
+      A = C > A ? C : A;
+    }
+    if (LEVEL >= 3) {
+      D = max(r == 0 ? A : sd[prev + above], wadd(C, -1));
+      const int e1 = D > E ? D : E;
+      A = max(wadd(A, tr == A ? 1 : -4), D);
+      B = (r >= 1 && r <= s) ? B : e1;
+      C = max(C, 0);
+      se[(g & 1) * nt + tid] = e1;
+    }
+    if (LEVEL >= 2) sc[(g & 1) * nt + tid] = C;
+    if (LEVEL >= 3) sd[(g & 1) * nt + tid] = D;
+    __syncthreads();
+    s = s + 1 == chunk ? 0 : s + 1;
+  }
+  if (LEVEL >= 3 && nstep > 0) E = r == 0 ? C : se[((nstep - 1) & 1) * nt + above];
+  if (live) atomicMax(&cmax[c], wadd(wadd(wadd(A, B), wadd(C, D)), E));
+  __syncthreads();
+  if (r == 0 && live) out[col] = cmax[c];
+}
+
+// ---- mosaic_int16_repro: int16 max(x + 3, x - 2), two lanes a thread.
+__global__ void int16_elementwise_kernel(const unsigned* __restrict__ x2,
+                                         const int16_t* __restrict__ x, int n,
+                                         unsigned* __restrict__ o2,
+                                         int16_t* __restrict__ o) {
+  const int pairs = n >> 1;
+  for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < pairs;
+       p += gridDim.x * blockDim.x) {
+    const unsigned v = x2[p];
+    o2[p] = __vmaxs2(__vadd2(v, 0x00030003u), __vsub2(v, 0x00020002u));
+  }
+  if ((n & 1) && blockIdx.x == 0 && threadIdx.x == 0) {
+    const int16_t v = x[n - 1];
+    const int16_t a = static_cast<int16_t>(v + 3);
+    const int16_t b = static_cast<int16_t>(v - 2);
+    o[n - 1] = a > b ? a : b;
+  }
+}
+
+// ---- mosaic_int16_repro: int16 roll(x, 1, axis 0), through shared memory
+// as the loops above exchange a step.
+__global__ void int16_roll_kernel(const int16_t* __restrict__ x, int S, int W,
+                                  int16_t* __restrict__ out) {
+  extern __shared__ int16_t sh_roll[];
+  const int nt = blockDim.x;
+  const int tid = threadIdx.x;
+  const int r = tid % S;
+  const int col = blockIdx.x * (nt / S) + tid / S;
+  const bool live = col < W;
+  const size_t at = static_cast<size_t>(r) * W + col;
+  sh_roll[tid] = live ? x[at] : 0;
+  __syncthreads();
+  if (live) out[at] = sh_roll[r == 0 ? tid + S - 1 : tid - 1];
+}
+
+// columns a block holds: S x cols threads, at most 1024
+int block_cols(int S) { return std::max(1, std::min(4, 1024 / S)); }
+
+int grid_for(int groups, int cols) { return (groups + cols - 1) / cols; }
+
+int loop(const void* x, int S, int W, int steps, int lanes, int dpx,
+         void* out, void* stream) {
+  if (S <= 0 || W <= 0) return 0;
+  const int cols = block_cols(S);
+  const int nt = S * cols;
+  const size_t smem = 2 * static_cast<size_t>(nt) * sizeof(unsigned);
+  const int blocks = grid_for((W + lanes - 1) / lanes, cols);
+  auto st = static_cast<cudaStream_t>(stream);
+  auto xi = static_cast<const int*>(x);
+  auto o = static_cast<int*>(out);
+  if (lanes == 2 && !dpx) loop_kernel<2, false><<<blocks, nt, smem, st>>>(xi, S, W, steps, o);
+  else if (lanes == 2) loop_kernel<2, true><<<blocks, nt, smem, st>>>(xi, S, W, steps, o);
+  else if (!dpx) loop_kernel<1, false><<<blocks, nt, smem, st>>>(xi, S, W, steps, o);
+  else loop_kernel<1, true><<<blocks, nt, smem, st>>>(xi, S, W, steps, o);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+int probe_dynamic_sublane(const void* idx, const void* t, int R, int W,
+                          void* out, void* stream) {
+  if (R <= 0 || W <= 0) return 0;
+  const int threads = 256;
+  const int blocks = std::min((W + threads - 1) / threads, 1024);
+  dynamic_sublane_kernel<<<blocks, threads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(idx), static_cast<const int*>(t), R, W,
+      static_cast<int*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int probe_int16_loop(const void* x, int S, int W, int steps, void* out,
+                     void* stream) {
+  return loop(x, S, W, steps, 2, 0, out, stream);
+}
+
+// the yardsticks of the int16 loop: int32 lanes (lanes = 1), DPX forms
+int probe_loop_yardstick(const void* x, int S, int W, int steps, int lanes,
+                         int dpx, void* out, void* stream) {
+  return loop(x, S, W, steps, lanes, dpx, out, stream);
+}
+
+int probe_int32_argmax(const void* x, int S, int W, int steps, void* out,
+                       void* amax, void* stream) {
+  if (S <= 0 || W <= 0) return 0;
+  const int cols = block_cols(S);
+  const int nt = S * cols;
+  const int parts = 2 * cols * (S / 32);
+  const size_t smem = (2 * static_cast<size_t>(nt) + 3 * parts + cols) * 4;
+  int32_argmax_kernel<<<grid_for(W, cols), nt, smem,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(x), S, W, steps, static_cast<int*>(out),
+      static_cast<int*>(amax));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int probe_swprobe(const void* x, int S, int W, int nstep, int chunk,
+                  int level, void* out, void* stream) {
+  if (S <= 0 || W <= 0) return 0;
+  const int cols = block_cols(S);
+  const int nt = S * cols;
+  const size_t smem = (7 * static_cast<size_t>(nt) + cols) * sizeof(int);
+  const int blocks = grid_for(W, cols);
+  auto st = static_cast<cudaStream_t>(stream);
+  auto xi = static_cast<const int*>(x);
+  auto o = static_cast<int*>(out);
+  switch (level) {
+    case 0: swprobe_kernel<0><<<blocks, nt, smem, st>>>(xi, S, W, nstep, chunk, o); break;
+    case 1: swprobe_kernel<1><<<blocks, nt, smem, st>>>(xi, S, W, nstep, chunk, o); break;
+    case 2: swprobe_kernel<2><<<blocks, nt, smem, st>>>(xi, S, W, nstep, chunk, o); break;
+    case 3: swprobe_kernel<3><<<blocks, nt, smem, st>>>(xi, S, W, nstep, chunk, o); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int probe_int16_elementwise(const void* x, int n, void* out, void* stream) {
+  if (n <= 0) return 0;
+  const int threads = 256;
+  const int blocks =
+      std::max(1, std::min((n / 2 + threads - 1) / threads, 65535));
+  int16_elementwise_kernel<<<blocks, threads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned*>(x), static_cast<const int16_t*>(x), n,
+      static_cast<unsigned*>(out), static_cast<int16_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int probe_int16_roll(const void* x, int S, int W, void* out, void* stream) {
+  if (S <= 0 || W <= 0) return 0;
+  const int cols = block_cols(S);
+  const int nt = S * cols;
+  int16_roll_kernel<<<grid_for(W, cols), nt, nt * sizeof(int16_t),
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int16_t*>(x), S, W, static_cast<int16_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

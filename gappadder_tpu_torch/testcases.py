@@ -1,6 +1,7 @@
 """Inputs for holding the hand-written kernels against their plain
-versions: SW query/target pairs and the sort's cases. Used by the tests
-and by chip_smoke.py; no pipeline path imports this module."""
+versions: SW query/target pairs, the sort's cases and the probe
+kernels' inputs. Used by the tests and by chip_smoke.py; no pipeline
+path imports this module."""
 
 from __future__ import annotations
 
@@ -97,3 +98,28 @@ def sw_test_pairs(seed, B=40, Lq=24, Lt=48):
     tl[5] = 0
     ql[6], tl[6] = Lq, Lt
     return q, ql, t, tl
+
+
+# the probe kernels' inputs: name -> (low, high, dtype) of uniform
+# integers, so that the int16 loop's h + 1 wraps (near_int16_max), its
+# e - 1 wraps (near_int16_min) and its int16 cast wraps (beyond_int16);
+# the argmax loop meets many equal maxima (small_ties) and distinct
+# ints that are equal as float32 (float_ties); int16_full spans int16
+PROBE_INPUTS = {
+    "zeros": (0, 1, np.int32),
+    "near_int16_max": (32700, 32768, np.int32),
+    "near_int16_min": (-32768, -32700, np.int32),
+    "beyond_int16": (-(1 << 20), 1 << 20, np.int32),
+    "small_ties": (0, 3, np.int32),
+    "float_ties": (-(1 << 29), 1 << 29, np.int32),
+    "int16_full": (-(1 << 15), 1 << 15, np.int16),
+}
+INT16_LOOP_INPUTS = ("zeros", "near_int16_max", "near_int16_min",
+                     "beyond_int16")
+ARGMAX_INPUTS = ("zeros", "small_ties", "float_ties")
+
+
+def probe_input(name: str, shape, seed: int = 0) -> np.ndarray:
+    """PROBE_INPUTS[name] drawn from numpy's generator at `seed`."""
+    lo, hi, dtype = PROBE_INPUTS[name]
+    return np.random.default_rng(seed).integers(lo, hi, shape).astype(dtype)

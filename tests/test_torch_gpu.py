@@ -1,6 +1,6 @@
-"""The port's CUDA paths on a card: the SW and sort kernels against
-their plain versions, and the fused step and the Assembly batch on the
-card against their CPU runs. These
+"""The port's CUDA paths on a card: the SW, sort and probe kernels
+against their plain versions, and the fused step and the Assembly batch
+on the card against their CPU runs. These
 tests need a CUDA device and skip elsewhere; they import no JAX, so
 they also run where only the port's dependencies are installed:
 
@@ -11,9 +11,14 @@ import numpy as np
 import pytest
 import torch
 
+from gappadder_tpu_torch import probes
 from gappadder_tpu_torch.ops import psort, sw_cuda, sw_host
 from gappadder_tpu_torch.parallel import slice as sl
-from gappadder_tpu_torch.testcases import SORT_CASES, sort_case, sw_test_pairs
+from gappadder_tpu_torch.probes import int16_repro, swprobe
+from gappadder_tpu_torch.probes import kernel_experiments as ke
+from gappadder_tpu_torch.testcases import (ARGMAX_INPUTS, INT16_LOOP_INPUTS,
+                                           SORT_CASES, probe_input, sort_case,
+                                           sw_test_pairs)
 
 MODES = ["local", "overlap", "fit", "extend"]
 
@@ -151,3 +156,91 @@ def test_sw_pairs_refuses_flanks_beyond_the_kernel(cuda):
         swutil.sw_pairs(q, ql, q[:, :100], ql // 11, sw_host.BWA_PARAMS,
                         "local", device=cuda)
     assert sw_cuda.launches == before
+
+
+def _same_and_counted(key, kernel, plain):
+    """kernel() launches its probe kernel once and equals plain()."""
+    before = probes.launches[key]
+    got = kernel()
+    torch.cuda.synchronize()
+    assert probes.launches[key] == before + 1
+    got = got if isinstance(got, tuple) else (got,)
+    want = plain()
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("j", [17, 0, 63, 64, 70, -1, -5, -70])
+def test_probe_dynamic_sublane_matches_plain(cuda, j):
+    t = torch.from_numpy(probe_input("beyond_int16", (64, 128), 3)).to(cuda)
+    idx = torch.tensor([[j]], dtype=torch.int32, device=cuda)
+    _same_and_counted("dynamic_sublane",
+                      lambda: ke.exp_dynamic_sublane(t, idx, device=cuda),
+                      lambda: ke.exp_dynamic_sublane_plain(t, idx))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", INT16_LOOP_INPUTS)
+def test_probe_int16_loop_matches_plain(cuda, case):
+    x = torch.from_numpy(probe_input(case, (ke.S, ke.TB), 1)).to(cuda)
+    _same_and_counted("int16_loop", lambda: ke.exp_int16_loop(x, device=cuda),
+                      lambda: ke.exp_int16_loop_plain(x))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes,dpx", [(1, False), (1, True), (2, False),
+                                       (2, True)])
+def test_probe_loop_yardsticks_match_where_nothing_wraps(cuda, lanes, dpx):
+    x = probe_input("beyond_int16", (96, 70), 9) // 100
+    x = torch.from_numpy(x).to(cuda)
+    _same_and_counted(
+        "loop_yardstick",
+        lambda: ke.recurrence_yardstick(x, 300, lanes=lanes, dpx=dpx),
+        lambda: ke.exp_int16_loop_plain(x, 300))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ARGMAX_INPUTS)
+@pytest.mark.parametrize("S,W", [(128, 128), (64, 37)])
+def test_probe_int32_argmax_matches_plain(cuda, case, S, W):
+    x = torch.from_numpy(probe_input(case, (S, W), 2)).to(cuda)
+    _same_and_counted(
+        "int32_argmax",
+        lambda: ke.exp_int32_loop_with_argmax(x, device=cuda),
+        lambda: ke.exp_int32_loop_with_argmax_plain(x))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("level", swprobe.LEVELS)
+def test_probe_swprobe_matches_plain(cuda, level):
+    x = torch.from_numpy(swprobe.script_input(seed=level)).to(cuda)
+    _same_and_counted("swprobe", lambda: swprobe.run(x, level, device=cuda),
+                      lambda: swprobe.run_plain(x, level))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["elementwise", "roll"])
+@pytest.mark.parametrize("shape", [(32, 128), (7, 33), (300, 5)])
+def test_probe_int16_repro_matches_plain(cuda, kernel, shape):
+    x = torch.from_numpy(probe_input("int16_full", shape, 4)).to(cuda)
+    _same_and_counted(f"int16_{kernel}",
+                      lambda: getattr(int16_repro, kernel)(x, device=cuda),
+                      lambda: getattr(int16_repro, f"{kernel}_plain")(x))
+
+
+@pytest.mark.gpu
+def test_probe_kernels_refuse_shapes_they_do_not_take(cuda):
+    before = dict(probes.launches)
+    with pytest.raises(ValueError, match="even width"):
+        ke.exp_int16_loop(torch.zeros((8, 5), dtype=torch.int32), device=cuda)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        ke.exp_int32_loop_with_argmax(torch.zeros((48, 8), dtype=torch.int32),
+                                      device=cuda)
+    with pytest.raises(ValueError, match="rows"):
+        swprobe.run(torch.zeros((1025, 8), dtype=torch.int32), device=cuda)
+    with pytest.raises(TypeError):
+        int16_repro.roll(torch.zeros((4, 4), dtype=torch.int32), device=cuda)
+    assert probes.launches == before

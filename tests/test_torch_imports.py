@@ -65,14 +65,19 @@ def test_run_step_refuses_without_gpu(monkeypatch):
 
 def test_kernel_modules_import_without_cuda():
     """Importing the kernel modules builds nothing and needs no nvcc."""
+    from gappadder_tpu_torch import probes
     from gappadder_tpu_torch.ops import cuda_build, psort, sw_cuda
     assert sw_cuda.launches >= 0 and psort.launches >= 0
+    assert min(probes.launches.values()) >= 0
     assert cuda_build._loaded == {}
-    assert {p.stem for p in cuda_build.CSRC.glob("*.cu")} >= {"sw", "sort"}
+    assert {p.stem for p in cuda_build.CSRC.glob("*.cu")} >= {"sw", "sort",
+                                                              "probes"}
 
 
 SLICE_MODULES = ["config", "utils.log", "io.fastq", "ops.swutil",
-                 "pipeline.fused", "pipeline.pick", "pipeline.run"]
+                 "pipeline.fused", "pipeline.pick", "pipeline.run",
+                 "probes.__init__", "probes.kernel_experiments",
+                 "probes.swprobe", "probes.int16_repro"]
 
 
 @pytest.mark.parametrize("mod", SLICE_MODULES)
@@ -80,7 +85,8 @@ def test_slice_modules_are_scanned_and_import(mod):
     import importlib
     path = ROOT / "gappadder_tpu_torch" / (mod.replace(".", "/") + ".py")
     assert path in PORT_FILES
-    importlib.import_module("gappadder_tpu_torch." + mod)
+    importlib.import_module("gappadder_tpu_torch." +
+                            mod.removesuffix(".__init__"))
 
 
 def _slice_inputs():
@@ -119,3 +125,43 @@ def test_slice_entry_points_refuse_without_gpu(monkeypatch, entry):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry](device="cuda")
     assert calls[entry](device="cpu") is not None
+
+
+def _probe_entries():
+    from gappadder_tpu_torch.probes import int16_repro, kernel_experiments
+    from gappadder_tpu_torch.probes import swprobe
+    x = np.arange(32 * 8, dtype=np.int32).reshape(32, 8)
+    return {
+        "exp_dynamic_sublane": kernel_experiments.exp_dynamic_sublane,
+        "exp_int16_loop": lambda **kw: kernel_experiments.exp_int16_loop(
+            x, steps=5, **kw),
+        "exp_int32_loop_with_argmax":
+            lambda **kw: kernel_experiments.exp_int32_loop_with_argmax(
+                x, steps=5, **kw)[0],
+        "swprobe.run": lambda **kw: swprobe.run(x[:, :4], 2, nstep=16, **kw),
+        "int16_repro.elementwise": int16_repro.elementwise,
+        "int16_repro.roll": int16_repro.roll,
+    }
+
+
+PROBE_ENTRIES = ["exp_dynamic_sublane", "exp_int16_loop",
+                 "exp_int32_loop_with_argmax", "swprobe.run",
+                 "int16_repro.elementwise", "int16_repro.roll"]
+
+
+@pytest.mark.parametrize("entry", PROBE_ENTRIES)
+def test_probe_entry_points_refuse_without_gpu(monkeypatch, entry):
+    """Each probe runs on the card unless asked for the CPU, and raises
+    without a card; on the CPU it runs the plain twin and launches
+    nothing."""
+    from gappadder_tpu_torch import probes
+    call = _probe_entries()[entry]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call(device="cuda")
+    before = dict(probes.launches)
+    out = call(device="cpu")
+    assert out.device.type == "cpu" and out.numel() > 0
+    assert probes.launches == before
