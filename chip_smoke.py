@@ -12,7 +12,13 @@ the shipped Assembly batch (`pipeline.fused.assemble_batch`) on that
 scenario's reads, and the Pick stage (`pipeline.run._pick_gaps`) on its
 contigs. It checks their outputs, fires the capacity checks and the cap
 growth, and times the step, the kernels, the Assembly batch and Pick
-with CUDA events and host clocks. Last, the probes path: the probe
+with CUDA events and host clocks. The kernel checks cover the edges of
+the SW kernel's bands of rows per lane and the sort's tile sizes; the
+SW times come at the step's block-4 batch and at Pick's own buckets,
+with the share of the kernel's lane-row cell slots that are live
+cells; the sort times come at each call shape of the step, with its
+CUDA launches per call and, for one and two keys, one stable
+`torch.sort` computing the same. Last, the probes path: the probe
 modules' `main()`s run as their JAX scripts in `scripts/` do, each
 probe kernel is held to its plain twin (also at a width that fills the
 card) and timed against its bound.
@@ -187,6 +193,23 @@ def patched(module, name, value):
 
 
 @contextlib.contextmanager
+def recording_sw(swutil):
+    """Route swutil's SW kernel calls as before, keeping a copy of each
+    call's inputs: yields a list of (q, qlen, t, tlen, params, mode,
+    end_slack)."""
+    calls = []
+    inner = swutil.sw_batch_cuda
+
+    def record(q, qlen, t, tlen, params, mode="local", end_slack=0):
+        calls.append((q.clone(), qlen.clone(), t.clone(), tlen.clone(),
+                      params, mode, end_slack))
+        return inner(q, qlen, t, tlen, params, mode, end_slack)
+
+    with patched(swutil, "sw_batch_cuda", record):
+        yield calls
+
+
+@contextlib.contextmanager
 def recording_sorts(psort):
     """Route psort.bitonic_sort through the kernel as before, keeping the
     number of calls and a copy of the last call's planes at each
@@ -220,7 +243,8 @@ def main() -> int:
     from gappadder_tpu_torch.ops.sw_host import BWA_PARAMS, SWParams
     from gappadder_tpu_torch.parallel import slice as sl
     from gappadder_tpu_torch.pipeline import fused, run
-    from gappadder_tpu_torch.testcases import (SORT_CASES, sort_case,
+    from gappadder_tpu_torch.testcases import (SORT_CASES, SW_EDGE_SHAPES,
+                                               sort_case, sw_edge_pairs,
                                                sw_test_pairs)
     from gappadder_tpu_torch.utils import log
     from gappadder_tpu_torch import probes
@@ -273,10 +297,24 @@ def main() -> int:
         max_err = max(max_err, check_sw(sw_cuda, q, ql, t, tl,
                                         BWA_PARAMS, mode, 0, dev))
         n_checks += 1
+    # query widths around the kernel's bands of rows per lane, with
+    # targets shorter than a warp and empty ones
+    for mode in ("local", "overlap", "fit", "extend"):
+        for si, (B, Lq, Lt) in enumerate(SW_EDGE_SHAPES):
+            params = (BWA_PARAMS, SWParams(), SWParams(2, -3, 5, 2))[si % 3]
+            q, ql, t, tl = sw_edge_pairs(100 + si, B, Lq, Lt)
+            slack = 2 if mode == "overlap" else 0
+            max_err = max(max_err, check_sw(sw_cuda, q, ql, t, tl, params,
+                                            mode, slack, dev))
+            n_checks += 1
     emit(phase="sw_check", cases=n_checks, max_abs_err=max_err,
          production_shapes=[[6144, 300, 2048, "local"],
                             [2048, 512, 2048, "local"],
-                            [2048, 512, 2048, "fit"]])
+                            [2048, 512, 2048, "fit"]],
+         edge_shapes=[list(x) for x in SW_EDGE_SHAPES],
+         rows_per_lane={Lq: sw_cuda.rows_per_lane(Lq)
+                        for Lq in sorted({x[1] for x in SW_EDGE_SHAPES}
+                                         | {300, 512})})
 
     # ---- phase 3: sort kernel == plain on the card -------------------------
     sort_err = 0
@@ -455,7 +493,8 @@ def main() -> int:
     t = time.perf_counter()
     with patched(swutil, "sw_pairs", timed(swutil.sw_pairs, "sw_ms")), \
             patched(sw_host, "alignment_stats_batch",
-                    timed(sw_host.alignment_stats_batch, "host_ms")):
+                    timed(sw_host.alignment_stats_batch, "host_ms")), \
+            recording_sw(swutil) as pick_sw:
         run._pick_gaps(cfg, gaps, batch, store, fills, exts,
                        cfg.pick_min_score_round1, False)
     pick_ms = dict(pick_times, total_ms=(time.perf_counter() - t) * 1e3)
@@ -520,37 +559,21 @@ def main() -> int:
          single_host_probe_ms=col(single, "host_probe_ms"),
          host_syncs_per_step=syncs, loadavg=os.getloadavg(), smi=card)
 
-    Lq, Lt = pq.shape[1], pt.shape[1]
+    # int32 operations a second: 64 lanes an SM at the max SM clock
+    ops_s = props.multi_processor_count * 64 * sm_clock_mhz * 1e6
+    Lq = pq.shape[1]
     qrows = torch.clamp(pql, max=Lq).long()
-    cells = int((qrows * torch.clamp(ptl, max=Lt).long()).sum())
     live_flat = live.reshape(-1)
     live_cells = int((qrows * ptl.long())[live_flat].sum())
-    kern_fn = lambda: sw_cuda.sw_batch_cuda(pq, pql, pt, ptl, BWA_PARAMS,
-                                            "local")
-    kern_fn()
-    sw_ms = cuda_ms(kern_fn, 5)
-    plain_ms = cuda_ms(lambda: sw_cuda.sw_batch_plain(
+    block4 = sw_shape_time(sw_cuda, (pq, pql, pt, ptl), BWA_PARAMS, "local",
+                           0, ops_s, live_cells=live_cells)
+    block4["plain_ms"] = cuda_ms(lambda: sw_cuda.sw_batch_plain(
         pq, pql, pt, ptl, BWA_PARAMS, "local"), 1)
-    B = pq.shape[0]
-    ops_s = props.multi_processor_count * 64 * sm_clock_mhz * 1e6
-    ops_ms = live_cells * SW_OPS_PER_CELL / ops_s * 1e3
-    bytes_ms = (B * (Lq + Lt) + 8 * B + 12 * B) / HBM_BYTES_PER_S * 1e3
-    bound_ms = max(ops_ms, bytes_ms)
-    # the diagonals each block sweeps (csrc/sw.cu: d = 2..dmax) and its
-    # threads, to read the kernel's time per thread and diagonal on an
-    # SM beside the probes' time per thread and step
-    dmax = torch.minimum(qrows + torch.clamp(ptl, min=0).long(),
-                         torch.full_like(qrows, Lq + Lt))
-    diagonals = int(torch.clamp(dmax - 1, min=0).sum())
-    threads = max(32, (Lq + 31) // 32 * 32)
-    emit(phase="sw_time", sw_ms=sw_ms, plain_ms=plain_ms, pairs=B,
-         cells=cells, live_cells=live_cells,
-         gcups_live=live_cells / (sw_ms / 1e3) / 1e9,
-         gcups_all=cells / (sw_ms / 1e3) / 1e9,
-         bound_ms=bound_ms, bound_ops_ms=ops_ms, bound_bytes_ms=bytes_ms,
-         block_diagonals=diagonals, threads_per_block=threads,
-         ps_per_thread_diagonal_per_sm=sw_ms * 1e9 * props.
-         multi_processor_count / (diagonals * threads), smi=card)
+    # Pick's three kernel calls of the checked run, on their own inputs
+    pick = [sw_shape_time(sw_cuda, c[:4], *c[4:], ops_s) for c in pick_sw]
+    del pick_sw
+    sw_ms, plain_ms = block4["ms"], block4["plain_ms"]
+    emit(phase="sw_time", **block4, pick=pick, smi=card)
 
     sort = sort_times(psort, step)
     emit(phase="sort_time", **sort, smi=card)
@@ -626,16 +649,18 @@ def main() -> int:
         "source": "gappadder_tpu_torch/csrc/sw.cu",
         "replaces": "gappadder_tpu/ops/sw_pallas.py:242",
         "launches": launches["step"]["sw"], "max_abs_err": float(max_err),
-        "ms": sw_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "library_ms": None,
+        "ms": sw_ms, "device_ms": block4["device_ms"], "plain_ms": plain_ms,
+        "bound_ms": block4["bound_ms"], "bound_by": block4["bound_by"],
+        "library_ms": None, "live_share": block4["live_share"],
         "launches_by_path": {p: v["sw"] for p, v in launches.items()},
-        "check": "exact equality with sw_batch_plain"}, {
+        "check": "exact equality with sw_batch_plain; times at the "
+                 "step's block-4 shape, Pick's in the sw_time line"}, {
         "name": "bitonic_sort", "route": "cuda",
         "source": "gappadder_tpu_torch/csrc/sort.cu",
         "replaces": "gappadder_tpu/ops/psort.py:67",
         "launches": launches["step"]["sort"], "max_abs_err": float(sort_err),
-        "ms": sort["step_ms"], "plain_ms": sort["step_plain_ms"],
+        "ms": sort["step_ms"], "device_ms": sort["step_device_ms"],
+        "plain_ms": sort["step_plain_ms"],
         "bound_ms": sort["step_bound_ms"], "bound_by": "bytes",
         "library_ms": sort["step_library_ms"],
         "launches_by_path": {p: v["sort"] for p, v in launches.items()},
@@ -663,38 +688,111 @@ def check_closure(contigs, glens, kset):
                                      f"close gap {g} ({lens} < {glen}+{k})")
 
 
+def sw_shape_time(sw_cuda, args, params, mode, slack, ops_s,
+                  live_cells=None) -> dict:
+    """The SW kernel on one batch: ms by CUDA events, device ms by the
+    profiler, its cells (those of `live_cells` pairs if given, else all)
+    and the operations bound on them, and the share of the kernel's
+    lane-row cell slots that are those cells."""
+    q, ql, t, tl = args
+    B, Lq = q.shape
+    Lt = t.shape[1]
+    qrows = torch.clamp(ql, max=Lq).long()
+    cells = int((qrows * torch.clamp(tl, min=0, max=Lt).long()).sum())
+    live_cells = cells if live_cells is None else live_cells
+    fn = lambda: sw_cuda.sw_batch_cuda(q, ql, t, tl, params, mode, slack)
+    fn()
+    ms = cuda_ms(fn, 5)
+    slots = sw_cuda.cell_slots(ql, tl, Lq, Lt)
+    # a local cell clamps at 0; the other modes do one max less
+    ops = live_cells * (SW_OPS_PER_CELL if mode == "local"
+                        else SW_OPS_PER_CELL - 1)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {"shape": [B, Lq, Lt], "mode": mode, "ms": ms,
+            "device_ms": kernel_device_ms(fn, 5, "sw_kernel"),
+            "cells": cells, "live_cells": live_cells,
+            "gcups_live": live_cells / (ms / 1e3) / 1e9,
+            "rows_per_lane": sw_cuda.rows_per_lane(Lq), "cell_slots": slots,
+            "live_share": live_cells / slots if slots else None,
+            "ps_per_cell_slot_per_sm": ms * 1e9 * sms / slots if slots
+            else None,
+            **bound(ops, B * (Lq + Lt) + 8 * B + 12 * B, ops_s)}
+
+
+def library_sort(ops, nk):
+    """One stable torch.sort plus gathers that computes the same sort,
+    where there is one: one key as it is; two keys packed into one int64,
+    the first key high, where each key plane's values all lie in
+    [0, 2^32) (bias 0) or in [-2^31, 2^31) (bias 2^31), read on the
+    host; else None. The high word is taken less 2^31, so the packed key
+    orders as a signed int64."""
+    if nk == 1:
+        key = lambda: ops[0]
+    elif nk == 2:
+        bias = []
+        for o in ops[:2]:
+            lo, hi = (int(o.min()), int(o.max())) if o.numel() else (0, 0)
+            if 0 <= lo and hi < 1 << 32:
+                bias.append(0)
+            elif -(1 << 31) <= lo and hi < 1 << 31:
+                bias.append(1 << 31)
+            else:
+                return None
+        b0, b1 = bias[0] - (1 << 31), bias[1]
+        key = lambda: (ops[0] + b0) * (1 << 32) + (ops[1] + b1)
+    else:
+        return None
+
+    def library():
+        idx = torch.sort(key(), dim=-1, stable=True).indices
+        return [torch.gather(o, -1, idx) for o in ops]
+    return library
+
+
 def sort_times(psort, step) -> dict:
-    """The sort kernel, the plain sort and (one key) torch.sort plus
-    gathers at each distinct call shape of one production step, on the
-    step's own inputs, with the bytes bound of each shape; and their
-    sums over the step's calls."""
+    """The sort kernel at each distinct call shape of one production
+    step, on the step's own inputs: ms by CUDA events, device ms and
+    CUDA launches per call by the profiler; the plain sort; the library
+    sort where there is one (`library_sort`, held equal to the kernel's
+    result first); and the bytes bound of each shape. Sums over the
+    step's calls (the library's only where every shape has one)."""
     with recording_sorts(psort) as calls:
         step()
     shapes = []
-    tot = {"step_ms": 0.0, "step_plain_ms": 0.0, "step_bound_ms": 0.0,
-           "step_library_ms": 0.0}
-    all_one_key = True
+    tot = {"step_ms": 0.0, "step_device_ms": 0.0, "step_plain_ms": 0.0,
+           "step_bound_ms": 0.0, "step_library_ms": 0.0,
+           "step_cuda_launches": 0.0}
+    every_library = True
     for (shape, nk, npay), (count, ops) in sorted(calls.items()):
         elems = int(np.prod(shape))
-        bound = 2 * 8 * elems * (nk + npay) / HBM_BYTES_PER_S * 1e3
-        kern = cuda_ms(lambda: psort.bitonic_sort(ops, nk), 10)
+        bound_ms = 2 * 8 * elems * (nk + npay) / HBM_BYTES_PER_S * 1e3
+        kern_fn = lambda: psort.bitonic_sort(ops, nk)
+        kern = cuda_ms(kern_fn, 10)
+        dev_ms, cuda_launches = kernel_profile(kern_fn, 5, "psort_")
+        dev_ms, cuda_launches = dev_ms / 5, cuda_launches / 5
         plain = cuda_ms(lambda: psort.bitonic_sort_plain(ops, nk), 10)
+        library = library_sort(ops, nk)
         lib = None
-        if nk == 1:
-            def library():
-                idx = torch.sort(ops[0], dim=-1, stable=True).indices
-                return [torch.gather(o, -1, idx) for o in ops]
+        if library is None:
+            every_library = False
+        else:
+            for g, w in zip(library(), kern_fn()):
+                if not torch.equal(g, w):
+                    raise AssertionError(f"library sort != kernel at {shape}")
             lib = cuda_ms(library, 10)
             tot["step_library_ms"] += count * lib
-        else:
-            all_one_key = False
         shapes.append({"shape": list(shape), "keys": nk, "payloads": npay,
-                       "calls_per_step": count, "ms": kern, "plain_ms": plain,
-                       "library_ms": lib, "bound_ms": bound})
+                       "calls_per_step": count, "ms": kern,
+                       "device_ms": dev_ms,
+                       "cuda_launches_per_call": cuda_launches,
+                       "plain_ms": plain, "library_ms": lib,
+                       "bound_ms": bound_ms})
         tot["step_ms"] += count * kern
+        tot["step_device_ms"] += count * dev_ms
+        tot["step_cuda_launches"] += count * cuda_launches
         tot["step_plain_ms"] += count * plain
-        tot["step_bound_ms"] += count * bound
-    if not all_one_key:
+        tot["step_bound_ms"] += count * bound_ms
+    if not every_library:
         tot["step_library_ms"] = None
     return dict(tot, calls_per_step=sum(c for c, _ in calls.values()),
                 shapes=shapes)
@@ -873,23 +971,32 @@ def probe_times(ke, sp, ir, dev, sms: int, ops_s: float) -> dict:
 
 
 def kernel_device_ms(fn, reps: int, tag: str) -> float:
-    """Mean device milliseconds of the CUDA kernels whose name holds
-    `tag` over `reps` calls of fn, by torch.profiler (over the launches
-    it recorded: it can miss the first one of a profiling run)."""
+    """Mean device milliseconds of the one CUDA kernel launch of fn whose
+    name holds `tag`, over `reps` calls (`kernel_profile`)."""
+    total_ms, n = kernel_profile(fn, reps, tag)
+    if not reps // 2 <= n <= reps:
+        raise AssertionError(f"profiler saw {n} {tag} launches of {reps}")
+    return total_ms / n
+
+
+def kernel_profile(fn, reps: int, tag: str) -> tuple:
+    """Device milliseconds and count of the CUDA kernels whose name holds
+    `tag` over `reps` calls of fn, by torch.profiler (a small copy goes
+    first: a profiling run can miss its first launch)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    fn()
+    warm = torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        warm.add_(1)
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
     mine = [e for e in prof.events()
             if e.device_type == DeviceType.CUDA and tag in e.name]
-    if not reps // 2 <= len(mine) <= reps:
-        raise AssertionError(f"profiler saw {len(mine)} {tag} launches of "
-                             f"{reps}")
-    return sum(e.self_device_time_total for e in mine) / 1e3 / len(mine)
+    return sum(e.self_device_time_total for e in mine) / 1e3, len(mine)
 
 
 def block_times(sl, dims, a):

@@ -3,11 +3,14 @@ CUDA kernel and its plain PyTorch version.
 
 Counterpart of gappadder_tpu/ops/psort.py::bitonic_sort. On a CUDA
 tensor `bitonic_sort` launches the hand-written kernel `csrc/sort.cu`,
-the port of the Pallas bitonic network `_bitonic_call`: a bitonic
-network over rows padded to a power of two, with the input index as
-the last tie-break and the pad elements ordered after every real one,
-so its result is the stable sort's. What bounds it is bytes (every
-plane read and written once); see the source for the design.
+the port of the Pallas bitonic network `_bitonic_call`, redesigned for
+the H100 as a tiled merge sort: each block sorts a tile of 256-2048
+elements of one row in registers and shared memory, then merge-path
+passes merge the sorted runs pairwise over all rows at once, and the
+last launch writes every output plane through the final index. Rows are
+not padded; the input index is the last tie-break, so the result is the
+stable sort's. What bounds it is bytes (every plane read and written
+once); see the source for the design.
 
 `bitonic_sort_plain` is an LSD chain of stable `torch.sort` passes over
 the key planes, last key first: the counterpart of the JAX package's
@@ -16,7 +19,8 @@ for tensors on the CPU. Both give the same result in every plane.
 
 Keys and payloads are int64 tensors holding uint32 or int32 values
 (k-mer limbs are stored as int64, see ops/kmers.py), so int32 keys
-order as signed and uint32 keys as unsigned with no bit mapping.
+order as signed and uint32 keys as unsigned with no bit mapping; any
+int64 key orders as signed int64.
 """
 
 from __future__ import annotations
@@ -94,9 +98,9 @@ def bitonic_sort(ops, num_keys: int, stable: bool = False):
         return tuple(o.reshape(shape) for o in outs)
     # a view where the leading axes collapse to one stride, else a copy
     ins = [o.reshape(B, N) for o in ops]
-    n = 1 << (N - 1).bit_length()
-    wk = torch.empty((num_keys, B, n), dtype=torch.int64, device=dev)
-    widx = torch.empty((B, n), dtype=torch.int32, device=dev)
+    # two ping-pong buffers of sorted runs: keys and the int32 index
+    wk = torch.empty((2, num_keys, B, N), dtype=torch.int64, device=dev)
+    widx = torch.empty((2, B, N), dtype=torch.int32, device=dev)
     desc = (ctypes.c_int64 * (4 * len(ops)))(
         *[x.data_ptr() for x in ins], *[o.data_ptr() for o in outs],
         *[x.stride(0) for x in ins], *[x.stride(1) for x in ins])

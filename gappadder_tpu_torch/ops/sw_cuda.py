@@ -5,10 +5,12 @@ PyTorch version.
 port of gappadder_tpu/ops/sw_pallas.py::sw_batch_pallas. What bounds
 it on an H100 is int32 ALU instruction throughput, not bytes: a pair
 moves Lq + Lt bytes in and 12 out but needs 11 int32 operations for
-each of its Lq x Lt cells. The kernel therefore keeps the DP state in registers
-(one thread per query row, one barrier per anti-diagonal), stages the
-target once in shared memory and stops each pair at its own last live
-diagonal; see the source for the design.
+each of its live cells. The kernel gives each pair one warp: lane l
+holds a band of R consecutive query rows (`rows_per_lane`) with their
+H and E in registers, sweeps one target column a step, and hands its
+band's last row to lane l + 1 with a warp shuffle, so there is no
+barrier and a pair takes tl + 31 steps at most; see the source for the
+design and the exact tie-break.
 
 `sw_batch_plain` has exactly the semantics of
 gappadder_tpu/ops/sw_xla.py::sw_batch in all four modes (local,
@@ -27,10 +29,29 @@ from .sw_host import SWParams
 
 NEG = -(1 << 28)
 MODES = {"local": 0, "overlap": 1, "fit": 2, "extend": 3}
-MAX_LQ = 1024            # one thread per query row, one block per pair
+MAX_LQ = 1024            # 32 lanes of at most 32 query rows
+ROWS_PER_LANE = (2, 4, 8, 10, 16, 32)   # csrc/sw.cu: the band sizes R
 
 # kernel launches since the last reset (chip_smoke.py reads this)
 launches = 0
+
+
+def rows_per_lane(Lq: int) -> int:
+    """R, the query rows each of a pair's 32 lanes holds at width Lq:
+    the least band size with 32 R >= Lq."""
+    return next(r for r in ROWS_PER_LANE if 32 * r >= Lq)
+
+
+def cell_slots(qlen, tlen, Lq: int, Lt: int) -> int:
+    """Lane-row cells the kernel steps through for these pairs (live or
+    not): 32 lanes x R rows x the pair's steps, tl + (lanes holding a
+    live row) - 1, where the pair has a row and a column."""
+    R = rows_per_lane(Lq)
+    qrows = torch.clamp(qlen.long(), max=Lq)
+    cols = torch.minimum(tlen.long(), torch.full_like(qrows, Lq + Lt - 1))
+    lanes = torch.clamp((qrows + R - 1) // R, max=32)
+    steps = torch.where((qrows > 0) & (cols > 0), cols + lanes - 1, 0)
+    return int(steps.sum()) * 32 * R
 
 
 def _shift(x, fill):

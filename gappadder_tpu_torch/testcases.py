@@ -17,7 +17,12 @@ PRODUCTION_ENTRY_CAP = 69632
 # gap batch, a DBG node-cap row batch, the DBG join of 4 limbs plus the
 # node/query tag (5 keys), the recruit join's 1-D row, rows of N = 0, 1,
 # 127 and 4097, rows of FULL keys and of ties, negative keys, and wide
-# composite keys above 2^32
+# composite keys above 2^32; and rows around the merge sort's tile size T
+# (N = T - 1, T, T + 1, 3T + 1) for its wide tiles (2 keys: T = 2048,
+# taken on a 132-SM card when the grid has a block for half the SMs,
+# here 140 or 280 tiles) and its narrow tiles (4 keys on a few rows:
+# T = 256), and the recruit join's one row of 77214 (4 keys + 2
+# payloads; 76 wide tiles, odd run counts on the way up)
 SORT_CASES = {
     **{f"k{k}p{p}": ((3, 1000), k, p, "limbs")
        for k in range(1, 5) for p in range(3)},
@@ -37,6 +42,12 @@ SORT_CASES = {
     "all_ties": ((4, 3000), 3, 2, "ties"),
     "negative": ((8, 2500), 2, 1, "signed"),
     "composite_key": ((16, 8192), 1, 1, "wide"),
+    **{f"wide_tile{tag}": ((rows, 2048 + d), 2, 1, "limbs")
+       for tag, rows, d in (("_m1", 140, -1), ("", 140, 0), ("_p1", 140, 1),
+                            ("3_p1", 70, 2 * 2048 + 1))},
+    **{f"narrow_tile{tag}": ((3, 256 + d), 4, 1, "limbs")
+       for tag, d in (("_m1", -1), ("", 0), ("_p1", 1), ("3_p1", 513))},
+    "row_77214_k4p2": ((77214,), 4, 2, "limbs"),
 }
 
 
@@ -97,6 +108,28 @@ def sw_test_pairs(seed, B=40, Lq=24, Lt=48):
     ql[4] = 0
     tl[5] = 0
     ql[6], tl[6] = Lq, Lt
+    return q, ql, t, tl
+
+
+# (B, Lq, Lt): query widths around the SW kernel's band sizes (32 lanes
+# of R rows, R in {2, 4, 8, 10, 16, 32}) and its 1024-row limit
+SW_EDGE_SHAPES = tuple((24, Lq, Lt) for Lq, Lt in (
+    (1, 40), (31, 29), (32, 64), (33, 33), (64, 20), (65, 130), (320, 300),
+    (1024, 260)))
+
+
+def sw_edge_pairs(seed, B=24, Lq=33, Lt=40):
+    """`sw_test_pairs` plus rows 7-15: targets shorter than a warp (1, 2,
+    5, 31 bases), an empty target beside a full query, one-row queries
+    and queries one short of Lq. B >= 16."""
+    q, ql, t, tl = sw_test_pairs(seed, B, Lq, Lt)
+    for r, n in zip(range(7, 11), (1, 2, 5, 31)):
+        tl[r] = min(n, Lt)
+        ql[r] = Lq
+    ql[11], tl[11] = Lq, 0
+    ql[12] = ql[13] = 1
+    ql[14] = ql[15] = max(Lq - 1, 0)
+    tl[13] = tl[15] = Lt
     return q, ql, t, tl
 
 

@@ -17,8 +17,9 @@ from gappadder_tpu_torch.parallel import slice as sl
 from gappadder_tpu_torch.probes import int16_repro, swprobe
 from gappadder_tpu_torch.probes import kernel_experiments as ke
 from gappadder_tpu_torch.testcases import (ARGMAX_INPUTS, INT16_LOOP_INPUTS,
-                                           SORT_CASES, probe_input, sort_case,
-                                           sw_test_pairs)
+                                           SORT_CASES, SW_EDGE_SHAPES,
+                                           probe_input, sort_case,
+                                           sw_edge_pairs, sw_test_pairs)
 
 MODES = ["local", "overlap", "fit", "extend"]
 
@@ -41,6 +42,24 @@ def test_kernel_matches_plain(cuda, mode):
     got = sw_cuda.sw_batch_cuda(*args, params, mode, slack)
     want = sw_cuda.sw_batch_plain(*args, params, mode, slack)
     assert sw_cuda.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("shape", SW_EDGE_SHAPES,
+                         ids=lambda s: f"{s[0]}x{s[1]}x{s[2]}")
+def test_kernel_matches_plain_at_band_edges(cuda, mode, shape):
+    """Query widths around the kernel's bands of rows per lane, with
+    targets shorter than a warp and empty ones."""
+    B, Lq, Lt = shape
+    q, ql, t, tl = sw_edge_pairs(Lq + Lt, B, Lq, Lt)
+    args = [torch.from_numpy(x).to(cuda) for x in (q, ql, t, tl)]
+    slack = 2 if mode == "overlap" else 0
+    params = sw_host.SWParams(2, -3, 5, 2)
+    got = sw_cuda.sw_batch_cuda(*args, params, mode, slack)
+    want = sw_cuda.sw_batch_plain(*args, params, mode, slack)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 

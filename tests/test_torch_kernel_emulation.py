@@ -1,0 +1,281 @@
+"""The CUDA sources of the sort and SW kernels, run on the CPU.
+
+A card is the only place the kernels run for real (tests/test_torch_gpu.py
+holds them to their plain versions there). This file checks the kernels'
+own logic (tiles, merge paths, bands of rows, warp hand-offs, the exact
+tie-break) on the CPU: each `csrc/*.cu` source is translated to plain
+C++ against a small emulation of the CUDA features it uses (one
+std::thread per CUDA thread, blocks one after another, __syncthreads and
+the warp shuffles and ballots as barriers, dynamic shared memory a
+buffer per block), built with g++ and called through the same C entry
+point the wrapper calls, on CPU buffers. It says nothing about speed,
+and a kernel that uses a CUDA feature the emulation lacks fails to build
+here. Skips where there is no g++.
+"""
+
+import ctypes
+import re
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from gappadder_tpu_torch.ops import cuda_build, psort, sw_cuda
+from gappadder_tpu_torch.ops.sw_host import BWA_PARAMS, SWParams
+from gappadder_tpu_torch.testcases import (SW_EDGE_SHAPES, sort_case,
+                                           sw_edge_pairs, sw_test_pairs)
+
+EMULATION = r"""
+#pragma once
+#include <barrier>
+#include <climits>
+#include <cstdint>
+#include <cstring>
+#include <memory>
+#include <thread>
+#include <vector>
+
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __restrict__
+
+typedef void* cudaStream_t;
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline int emu_sms = 132;
+extern "C" void emu_set_sms(int n) { emu_sms = n; }
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaFuncSetAttribute(const void*, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = emu_sms;
+  return cudaSuccess;
+}
+
+struct U3 { unsigned x = 0, y = 0, z = 0; };
+inline thread_local U3 threadIdx, blockIdx, blockDim, gridDim;
+
+namespace emu {
+struct Warp { std::barrier<> bar{32}; uint64_t slot[32]; };
+struct Block {
+  std::unique_ptr<std::barrier<>> bar;
+  std::vector<std::unique_ptr<Warp>> warps;
+  std::vector<unsigned char> smem;
+};
+inline thread_local Block* blk = nullptr;
+inline unsigned char* dyn_smem() { return blk->smem.data(); }
+inline Warp& warp() { return *blk->warps[threadIdx.x / 32]; }
+inline int lane() { return threadIdx.x % 32; }
+
+template <class... P, class... A>
+void launch(unsigned grid, unsigned block, size_t smem, cudaStream_t,
+            void (*k)(P...), A... args) {
+  for (unsigned b = 0; b < grid; ++b) {
+    Block B;
+    B.bar = std::make_unique<std::barrier<>>(block);
+    for (unsigned w = 0; w < (block + 31) / 32; ++w)
+      B.warps.push_back(std::make_unique<Warp>());
+    B.smem.assign(smem + 64, 0xA5);  // garbage, as on a card
+    std::vector<std::thread> ts;
+    for (unsigned t = 0; t < block; ++t)
+      ts.emplace_back([&, t] {
+        threadIdx.x = t; blockIdx.x = b; blockDim.x = block; gridDim.x = grid;
+        blk = &B;
+        k(args...);
+        // an exited thread no longer holds up its block or its warp
+        B.bar->arrive_and_drop();
+        B.warps[t / 32]->bar.arrive_and_drop();
+      });
+    for (auto& th : ts) th.join();
+  }
+}
+template <class T> T exchange(T v, int src) {
+  Warp& w = warp();
+  uint64_t bits = 0;
+  std::memcpy(&bits, &v, sizeof(T));
+  w.slot[lane()] = bits;
+  w.bar.arrive_and_wait();
+  T r;
+  std::memcpy(&r, &w.slot[src], sizeof(T));
+  w.bar.arrive_and_wait();
+  return r;
+}
+}  // namespace emu
+
+inline void __syncthreads() { emu::blk->bar->arrive_and_wait(); }
+template <class T> T __shfl_up_sync(unsigned, T v, unsigned d) {
+  const int l = emu::lane();
+  return emu::exchange(v, l >= (int)d ? l - (int)d : l);
+}
+template <class T> T __shfl_down_sync(unsigned, T v, unsigned d) {
+  const int l = emu::lane();
+  return emu::exchange(v, l + (int)d < 32 ? l + (int)d : l);
+}
+inline unsigned __ballot_sync(unsigned, bool p) {
+  emu::Warp& w = emu::warp();
+  w.slot[emu::lane()] = p;
+  w.bar.arrive_and_wait();
+  unsigned m = 0;
+  for (int i = 0; i < 32; ++i) if (w.slot[i]) m |= 1u << i;
+  w.bar.arrive_and_wait();
+  return m;
+}
+inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
+inline int min(int a, int b) { return a < b ? a : b; }
+inline int max(int a, int b) { return a > b ? a : b; }
+"""
+
+
+def _translate(src: str) -> str:
+    """A kernel source as C++ for the emulation: the header in place of
+    cuda_runtime.h, dynamic shared memory from the block's buffer, and
+    every <<<grid, block, smem, stream>>> launch as a call."""
+    src = src.replace("#include <cuda_runtime.h>", '#include "emulation.h"')
+    src = re.sub(r"extern __shared__ (\w[\w ]*?) (\w+)\[\];",
+                 r"\1* \2 = reinterpret_cast<\1*>(emu::dyn_smem());", src)
+    return re.sub(r"([\w:]+(?:<[^;()]*?>)?)\s*<<<([^>]*)>>>\(",
+                  r"emu::launch(\2, &\1, ", src)
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """name -> build of csrc/<name>.cu for the emulation."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to build the emulated kernels")
+    d = tmp_path_factory.mktemp("emulated_kernels")
+    (d / "emulation.h").write_text(EMULATION)
+    built = {}
+
+    def build(name, copy=""):
+        key = name + copy
+        if key not in built:
+            cpp = d / f"{name}.cpp"
+            if not cpp.exists():
+                cpp.write_text(_translate(
+                    (cuda_build.CSRC / f"{name}.cu").read_text()))
+                subprocess.run(["g++", "-std=c++20", "-O1", "-shared",
+                                "-fPIC", "-pthread", "-w", f"-I{d}", "-o",
+                                str(d / f"lib{name}.so"), str(cpp)],
+                               check=True)
+            # a copy loads as a library of its own, with its own statics
+            so = d / f"lib{key}.so"
+            if copy:
+                shutil.copy(d / f"lib{name}.so", so)
+            built[key] = ctypes.CDLL(str(so))
+        return built[key]
+    return build
+
+
+def _emulated_sort(lib, ops, nk):
+    """psort.bitonic_sort's launch, on CPU buffers."""
+    shape = ops[0].shape
+    N = shape[-1]
+    B = int(np.prod(shape[:-1], dtype=np.int64))
+    outs = [torch.full((B, N), -7, dtype=torch.int64) for _ in ops]
+    ins = [o.reshape(B, N) for o in ops]
+    wk = torch.full((2, nk, B, N), -9, dtype=torch.int64)
+    widx = torch.full((2, B, N), -9, dtype=torch.int32)
+    desc = (ctypes.c_int64 * (4 * len(ops)))(
+        *[x.data_ptr() for x in ins], *[o.data_ptr() for o in outs],
+        *[x.stride(0) for x in ins], *[x.stride(1) for x in ins])
+    fn = lib.psort_launch
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, ci, ci, ci, ci, vp, vp, vp]
+    fn.restype = ci
+    assert fn(ctypes.addressof(desc), nk, len(ops), B, N, wk.data_ptr(),
+              widx.data_ptr(), None) == 0
+    return [o.reshape(shape) for o in outs]
+
+
+# (case, SMs): 132 SMs takes the narrow tiles for these few rows (and
+# the wide ones for wide_tile*), one SM the wide tiles everywhere
+SORT_RUNS = [("k1p2", 132), ("k2p1", 132), ("k3p2", 1), ("k4p1", 132),
+             ("n0", 132), ("n1", 132), ("n127", 1), ("n4097", 1),
+             ("n4097", 132), ("n1_1d", 132), ("all_full", 1),
+             ("all_ties", 132), ("negative", 1), ("narrow_tile_m1", 132),
+             ("narrow_tile_p1", 132), ("narrow_tile3_p1", 132),
+             ("wide_tile_p1", 132)]
+
+
+@pytest.mark.parametrize("case,sms", SORT_RUNS)
+def test_emulated_sort_kernel_matches_plain(emulated, case, sms):
+    lib = emulated("sort", f"_sms{sms}")
+    lib.emu_set_sms(sms)
+    planes, nk = sort_case(case, seed=len(case))
+    ops = [torch.from_numpy(p) for p in planes]
+    for g, w in zip(_emulated_sort(lib, ops, nk),
+                    psort.bitonic_sort_plain(ops, nk)):
+        assert torch.equal(g, w)
+
+
+def test_emulated_sort_kernel_takes_strided_planes_and_wide_keys(emulated):
+    lib = emulated("sort", "_sms1")
+    lib.emu_set_sms(1)
+    rng = np.random.default_rng(8)
+    both = torch.from_numpy(rng.integers(-(1 << 40), 1 << 40, (3, 2500, 3)))
+    ops = [both[..., 1], both[..., 0] % 5, both[..., 2]]
+    for g, w in zip(_emulated_sort(lib, ops, 2),
+                    psort.bitonic_sort_plain(ops, 2)):
+        assert torch.equal(g, w)
+
+
+def _emulated_sw(lib, q, ql, t, tl, params, mode, slack):
+    """sw_cuda.sw_batch_cuda's launch, on CPU buffers."""
+    B, Lq = q.shape
+    out = [torch.full((B,), -5, dtype=torch.int32) for _ in range(3)]
+    fn = lib.sw_batch_launch
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, vp, vp, vp] + [ci] * 9 + [vp, vp, vp, vp]
+    fn.restype = ci
+    assert fn(q.data_ptr(), ql.data_ptr(), t.data_ptr(), tl.data_ptr(), B,
+              Lq, t.shape[1], params.match, params.mismatch,
+              params.gap_open, params.gap_extend, sw_cuda.MODES[mode], slack,
+              *[o.data_ptr() for o in out], None) == 0
+    return out
+
+
+def _check_sw(lib, pairs, params, mode, slack):
+    args = [torch.from_numpy(np.ascontiguousarray(x)) for x in pairs]
+    got = _emulated_sw(lib, *args, params, mode, slack)
+    want = sw_cuda.sw_batch_plain(*args, params, mode, slack)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("mode", ["local", "overlap", "fit", "extend"])
+@pytest.mark.parametrize("params", [BWA_PARAMS, SWParams(1, -1, 1, 1)],
+                         ids=["bwa", "unit"])
+def test_emulated_sw_kernel_matches_plain(emulated, mode, params):
+    """Ragged pairs with forced ties (poly-A, one repeated base) at
+    bands of 2 and 10 rows a lane."""
+    lib = emulated("sw")
+    slack = 3 if mode == "overlap" else 0
+    for i, (B, Lq, Lt) in enumerate(((40, 24, 48), (9, 300, 90))):
+        _check_sw(lib, sw_test_pairs(i, B, Lq, Lt), params, mode, slack)
+
+
+@pytest.mark.parametrize("shape", [s for s in SW_EDGE_SHAPES if s[1] <= 320],
+                         ids=lambda s: f"{s[0]}x{s[1]}x{s[2]}")
+def test_emulated_sw_kernel_at_band_edges(emulated, shape):
+    """The card's edge shapes, all four modes, and rows beyond the
+    callers' contract: targets longer than their row (cells past
+    i + j = Lq + Lt are no candidates), queries longer than Lq, and
+    negative codes."""
+    lib = emulated("sw")
+    B, Lq, Lt = shape
+    q, ql, t, tl = sw_edge_pairs(100 + Lq, B, Lq, Lt)
+    tl[16:20] = Lt + np.array([1, 7, Lq, Lq + 40])
+    ql[20:22] = Lq + 3
+    q[22, ::3] = -1
+    t[22, ::2] = -1
+    for mode in ("local", "overlap", "fit", "extend"):
+        _check_sw(lib, (q, ql, t, tl), SWParams(2, -3, 5, 2), mode,
+                  2 if mode == "overlap" else 0)

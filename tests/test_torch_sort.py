@@ -13,7 +13,7 @@ import torch
 
 from gappadder_tpu.ops import psort as jpsort
 from gappadder_tpu_torch.ops import psort
-from gappadder_tpu_torch.testcases import sort_case
+from gappadder_tpu_torch.testcases import SORT_CASES, sort_case
 
 
 def _oracle(ops, num_keys):
@@ -131,3 +131,17 @@ def test_sort_refuses_non_int64_planes():
         psort.bitonic_sort((torch.zeros(4, dtype=torch.int32),), 1)
     with pytest.raises(ValueError):
         psort.bitonic_sort((torch.zeros(4, dtype=torch.int64),), 2)
+
+
+@pytest.mark.parametrize("case", [n for n in SORT_CASES
+                                  if n.startswith(("wide_tile", "narrow_tile",
+                                                   "row_"))])
+def test_plain_matches_lax_sort_on_tile_edge_cases(case):
+    """The cases around the kernel's tile sizes, at their full shapes,
+    against lax.sort(is_stable=True)."""
+    planes, nk = sort_case(case, seed=len(case))
+    got = psort.bitonic_sort(tuple(torch.from_numpy(p) for p in planes), nk)
+    as32 = [p.astype(np.uint32 if i < nk else np.int32)
+            for i, p in enumerate(planes)]
+    for g, w in zip(got, _oracle(as32, nk)):
+        np.testing.assert_array_equal(g.numpy(), w)

@@ -12,6 +12,7 @@ import torch
 from gappadder_tpu.ops import sw_pallas, sw_xla
 from gappadder_tpu.ops.sw_host import SWParams as JSWParams
 from gappadder_tpu_torch.ops import sw_cuda, sw_host
+from gappadder_tpu_torch.testcases import SW_EDGE_SHAPES, sw_edge_pairs
 from gappadder_tpu_torch.testcases import sw_test_pairs as _pairs
 
 MODES = ["local", "overlap", "fit", "extend"]
@@ -110,3 +111,41 @@ def test_swutil_matches_jax(mode):
         np.testing.assert_array_equal(g, w)
     if mode == "local":
         assert (got[0] > 0).all()
+
+
+@pytest.mark.parametrize("shape", SW_EDGE_SHAPES,
+                         ids=lambda s: f"{s[0]}x{s[1]}x{s[2]}")
+def test_plain_matches_sw_xla_at_band_edges(shape):
+    """The query widths and short targets the card holds the kernel to
+    (`testcases.SW_EDGE_SHAPES`), one mode each, against sw_xla."""
+    B, Lq, Lt = shape
+    mode = MODES[SW_EDGE_SHAPES.index(shape) % 4]
+    q, ql, t, tl = sw_edge_pairs(Lq + Lt, B, Lq, Lt)
+    slack = 2 if mode == "overlap" else 0
+    want = sw_xla.sw_batch(jnp.asarray(q), jnp.asarray(ql), jnp.asarray(t),
+                           jnp.asarray(tl), JSWParams(2, -3, 5, 2), mode,
+                           end_slack=slack)
+    got = _plain(q, ql, t, tl, (2, -3, 5, 2), mode, slack)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, np.asarray(w))
+
+
+@pytest.mark.parametrize("Lq", [1, 32, 33, 300, 320, 321, 1024])
+def test_cell_slots_counts_the_kernel_sweep(Lq):
+    """cell_slots equals a cell-by-cell count of the kernel's schedule:
+    32 lanes of R rows stepping through every column of the pair, from
+    the first lane's first column to the last live lane's last."""
+    R = sw_cuda.rows_per_lane(Lq)
+    assert 32 * R >= Lq and (R == sw_cuda.ROWS_PER_LANE[0]
+                             or 32 * sw_cuda.ROWS_PER_LANE[
+                                 sw_cuda.ROWS_PER_LANE.index(R) - 1] < Lq)
+    Lt = 50
+    ql = np.array([0, 1, Lq, max(Lq - 7, 1), Lq, Lq], np.int32)
+    tl = np.array([5, 9, 0, Lt, 1, 31], np.int32)
+    want = 0
+    for q, t in zip(ql, tl):
+        if q > 0 and t > 0:
+            last_lane = (min(q, Lq) - 1) // R
+            want += 32 * R * (t + last_lane)
+    assert sw_cuda.cell_slots(torch.from_numpy(ql), torch.from_numpy(tl),
+                              Lq, Lt) == want
