@@ -1,13 +1,48 @@
-"""Columnar read store (counterpart of gappadder_tpu/io/fastq.py's
-`ReadSet`). Scanning and parsing FASTQ files come with the Collect
-stage of the port; the Assembly batch needs only the store.
+"""FASTQ reading into columnar arrays, with 64-bit name hashes
+(counterpart of gappadder_tpu/io/fastq.py).
+
+A FASTQ library is a columnar store: int8 sequence codes, lengths,
+qualities, and an FNV-1a 64-bit hash per read name. `ReadSet` holds the
+payloads; `LazyReadSet` holds only the hashes and byte offsets and
+reads a record's payload from the file when it is asked for. The scan
+here is the pure-Python pass; the JAX package's native scan gives the
+same arrays.
+
+Read names are normalized like the reference: the token before the
+first whitespace, with a trailing "/1" / "/2" stripped.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
+
+from .. import dna
+
+_FNV_OFFSET = 0xCBF29CE484222325
+_FNV_PRIME = 0x100000001B3
+_MASK64 = 0xFFFFFFFFFFFFFFFF
+
+
+def fnv1a(name: bytes) -> int:
+    """FNV-1a 64-bit hash of a byte string."""
+    h = _FNV_OFFSET
+    for b in name:
+        h = ((h ^ b) * _FNV_PRIME) & _MASK64
+    return h
+
+
+def normalize_name(raw: bytes) -> bytes:
+    """'@NAME/1 comment' -> b'NAME' (the reference's name matching)."""
+    if raw.startswith(b"@"):
+        raw = raw[1:]
+    tok = raw.split()[0] if raw.split() else b""
+    slash = tok.rfind(b"/")
+    if slash != -1 and tok[slash + 1:] in (b"1", b"2"):
+        tok = tok[:slash]
+    return tok
 
 
 @dataclasses.dataclass
@@ -31,3 +66,85 @@ class ReadSet:
 
     def get_name(self, row: int) -> bytes:
         return self.names[row]
+
+
+@dataclasses.dataclass
+class LazyReadSet:
+    """Offset-indexed FASTQ: name hashes and per-record byte offsets
+    only (~38 B a read); payloads are read on demand through mmap."""
+    path: str
+    name_hash: np.ndarray    # uint64 [N]
+    length: np.ndarray       # int32 [N]
+    seq_off: np.ndarray      # int64 [N] byte offset of sequence line
+    qual_off: np.ndarray     # int64 [N]
+    name_off: np.ndarray     # int64 [N] (after '@')
+    name_len: np.ndarray     # int32 [N] normalized-name length
+    max_len: int
+
+    _mm: object = dataclasses.field(default=None, repr=False, compare=False)
+
+    @property
+    def n(self) -> int:
+        return len(self.length)
+
+    def _mmap(self):
+        if self._mm is None:
+            import mmap
+            with open(self.path, "rb") as fh:
+                self._mm = mmap.mmap(fh.fileno(), 0,
+                                     access=mmap.ACCESS_READ)
+        return self._mm
+
+    def get_seq(self, row: int) -> np.ndarray:
+        mm = self._mmap()
+        o = int(self.seq_off[row])
+        return dna.encode(mm[o:o + int(self.length[row])])
+
+    def get_qual(self, row: int) -> np.ndarray:
+        mm = self._mmap()
+        o = int(self.qual_off[row])
+        return np.frombuffer(mm[o:o + int(self.length[row])], np.uint8)
+
+    def get_name(self, row: int) -> bytes:
+        mm = self._mmap()
+        o = int(self.name_off[row])
+        return mm[o:o + int(self.name_len[row])]
+
+
+def scan_fastq(path: str | os.PathLike) -> LazyReadSet:
+    """Index a FASTQ without holding payloads (one pure-Python pass)."""
+    hashes, lens, seq_off, qual_off, name_off, name_len = \
+        [], [], [], [], [], []
+    max_len = 1
+    with open(path, "rb") as fh:
+        off = 0
+        while True:
+            h = fh.readline()
+            if not h:
+                break
+            noff = off + (1 if h.startswith(b"@") else 0)
+            nm = normalize_name(h.rstrip())
+            off += len(h)
+            s = fh.readline()
+            seq_off.append(off)
+            sl = len(s.rstrip())
+            lens.append(sl)
+            max_len = max(max_len, sl)
+            off += len(s)
+            plus = fh.readline()
+            off += len(plus)
+            q = fh.readline()
+            qual_off.append(off)
+            off += len(q)
+            hashes.append(fnv1a(nm))
+            name_off.append(noff)
+            name_len.append(len(nm))
+    return LazyReadSet(
+        path=str(path),
+        name_hash=np.asarray(hashes, np.uint64),
+        length=np.asarray(lens, np.int32),
+        seq_off=np.asarray(seq_off, np.int64),
+        qual_off=np.asarray(qual_off, np.int64),
+        name_off=np.asarray(name_off, np.int64),
+        name_len=np.asarray(name_len, np.int32),
+        max_len=max_len)

@@ -10,7 +10,10 @@ holds a band of R consecutive query rows (`rows_per_lane`) with their
 H and E in registers, sweeps one target column a step, and hands its
 band's last row to lane l + 1 with a warp shuffle, so there is no
 barrier and a pair takes tl + 31 steps at most; see the source for the
-design and the exact tie-break.
+design and the exact tie-break. A query longer than 32 x 32 rows is
+swept in strips of 1024 rows, one after another, each strip handing its
+last row to the next through a per-pair scratch row in device memory
+(`strips`).
 
 `sw_batch_plain` has exactly the semantics of
 gappadder_tpu/ops/sw_xla.py::sw_batch in all four modes (local,
@@ -29,8 +32,8 @@ from .sw_host import SWParams
 
 NEG = -(1 << 28)
 MODES = {"local": 0, "overlap": 1, "fit": 2, "extend": 3}
-MAX_LQ = 1024            # 32 lanes of at most 32 query rows
 ROWS_PER_LANE = (2, 4, 8, 10, 16, 32)   # csrc/sw.cu: the band sizes R
+STRIP_ROWS = 32 * ROWS_PER_LANE[-1]     # rows of one strip of the query
 
 # kernel launches since the last reset (chip_smoke.py reads this)
 launches = 0
@@ -38,19 +41,28 @@ launches = 0
 
 def rows_per_lane(Lq: int) -> int:
     """R, the query rows each of a pair's 32 lanes holds at width Lq:
-    the least band size with 32 R >= Lq."""
-    return next(r for r in ROWS_PER_LANE if 32 * r >= Lq)
+    the least band size with 32 R >= Lq, and 32 past 1024 rows."""
+    return next((r for r in ROWS_PER_LANE if 32 * r >= Lq),
+                ROWS_PER_LANE[-1])
+
+
+def strips(Lq: int) -> int:
+    """Strips of 32 R rows the kernel sweeps a query of Lq rows in."""
+    return max(-(-Lq // (32 * rows_per_lane(Lq))), 1)
 
 
 def cell_slots(qlen, tlen, Lq: int, Lt: int) -> int:
     """Lane-row cells the kernel steps through for these pairs (live or
-    not): 32 lanes x R rows x the pair's steps, tl + (lanes holding a
-    live row) - 1, where the pair has a row and a column."""
+    not): 32 lanes x R rows x the pair's steps, where the pair has a row
+    and a column. Each strip of 32 R rows takes tl + (its lanes holding
+    a live row) - 1 steps."""
     R = rows_per_lane(Lq)
     qrows = torch.clamp(qlen.long(), max=Lq)
     cols = torch.minimum(tlen.long(), torch.full_like(qrows, Lq + Lt - 1))
-    lanes = torch.clamp((qrows + R - 1) // R, max=32)
-    steps = torch.where((qrows > 0) & (cols > 0), cols + lanes - 1, 0)
+    n = torch.clamp((qrows + 32 * R - 1) // (32 * R), min=1)
+    last = torch.clamp((qrows - (n - 1) * 32 * R + R - 1) // R, max=32)
+    lanes = 32 * (n - 1) + last
+    steps = torch.where((qrows > 0) & (cols > 0), n * (cols - 1) + lanes, 0)
     return int(steps.sum()) * 32 * R
 
 
@@ -175,7 +187,7 @@ def sw_batch_cuda(q, qlen, t, tlen, params: SWParams = SWParams(),
                   mode: str = "local", end_slack: int = 0):
     """Same contract as `sw_batch_plain`. CPU tensors take the plain
     version; CUDA tensors launch `csrc/sw.cu` (int8 codes, int32
-    lengths, contiguous, Lq <= 1024) or raise."""
+    lengths, contiguous, any Lq) or raise."""
     global launches
     tensors = (q, qlen, t, tlen)
     if all(x.device.type == "cpu" for x in tensors):
@@ -194,8 +206,6 @@ def sw_batch_cuda(q, qlen, t, tlen, params: SWParams = SWParams(),
                          "qlen/tlen [B]")
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("sw_batch_cuda: inputs must be contiguous")
-    if q.shape[1] > MAX_LQ:
-        raise ValueError(f"sw_batch_cuda: Lq={q.shape[1]} > {MAX_LQ}")
     if mode not in MODES:
         raise ValueError(f"sw_batch_cuda: unknown mode {mode!r}")
 
@@ -203,18 +213,21 @@ def sw_batch_cuda(q, qlen, t, tlen, params: SWParams = SWParams(),
     lib = cuda_build.load("sw")
     fn = lib.sw_batch_launch
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, vp] + [ci] * 9 + [vp, vp, vp, vp]
+    fn.argtypes = [vp, vp, vp, vp] + [ci] * 9 + [vp] * 5
     fn.restype = ci
     B, Lq = q.shape
     Lt = t.shape[1]
     out = [torch.empty(B, dtype=torch.int32, device=dev) for _ in range(3)]
+    # the (H, F) row a strip hands to the next, one a pair
+    scratch = (torch.empty((B, Lq + Lt, 2), dtype=torch.int32, device=dev)
+               if Lq > STRIP_ROWS else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(q.data_ptr(), qlen.data_ptr(), t.data_ptr(), tlen.data_ptr(),
                  B, Lq, Lt, params.match, params.mismatch, params.gap_open,
                  params.gap_extend, MODES[mode], end_slack,
                  out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-                 stream)
+                 None if scratch is None else scratch.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"sw_batch_cuda: kernel launch failed "
                            f"(cudaError {err})")

@@ -21,8 +21,11 @@ PRODUCTION_ENTRY_CAP = 69632
 # (N = T - 1, T, T + 1, 3T + 1) for its wide tiles (2 keys: T = 2048,
 # taken on a 132-SM card when the grid has a block for half the SMs,
 # here 140 or 280 tiles) and its narrow tiles (4 keys on a few rows:
-# T = 256), and the recruit join's one row of 77214 (4 keys + 2
-# payloads; 76 wide tiles, odd run counts on the way up)
+# T = 256), the recruit join's one row of 77214 (4 keys + 2 payloads;
+# 76 wide tiles, odd run counts on the way up), and the seed matcher's
+# single rows near 2^20: the contig k-mer index (2 limbs + contig id and
+# position) and the read-to-index join (2 limbs + the index/query tag,
+# the row id)
 SORT_CASES = {
     **{f"k{k}p{p}": ((3, 1000), k, p, "limbs")
        for k in range(1, 5) for p in range(3)},
@@ -48,6 +51,8 @@ SORT_CASES = {
     **{f"narrow_tile{tag}": ((3, 256 + d), 4, 1, "limbs")
        for tag, d in (("_m1", -1), ("", 0), ("_p1", 1), ("3_p1", 513))},
     "row_77214_k4p2": ((77214,), 4, 2, "limbs"),
+    "row_1m_k2p2": (((1 << 20) - 3,), 2, 2, "limbs"),
+    "row_1m_k3p1": (((1 << 20) + 5,), 3, 1, "limbs"),
 }
 
 
@@ -112,7 +117,7 @@ def sw_test_pairs(seed, B=40, Lq=24, Lt=48):
 
 
 # (B, Lq, Lt): query widths around the SW kernel's band sizes (32 lanes
-# of R rows, R in {2, 4, 8, 10, 16, 32}) and its 1024-row limit
+# of R rows, R in {2, 4, 8, 10, 16, 32}) and its one-strip limit of 1024
 SW_EDGE_SHAPES = tuple((24, Lq, Lt) for Lq, Lt in (
     (1, 40), (31, 29), (32, 64), (33, 33), (64, 20), (65, 130), (320, 300),
     (1024, 260)))
@@ -156,3 +161,96 @@ def probe_input(name: str, shape, seed: int = 0) -> np.ndarray:
     """PROBE_INPUTS[name] drawn from numpy's generator at `seed`."""
     lo, hi, dtype = PROBE_INPUTS[name]
     return np.random.default_rng(seed).integers(lo, hi, shape).astype(dtype)
+
+
+# (B, Lq, Lt): queries longer than one strip of the SW kernel (1024 rows),
+# swept in two or three strips
+SW_STRIP_SHAPES = ((24, 1025, 90), (24, 1100, 70), (24, 2055, 60))
+
+
+def sw_strip_pairs(seed, B=24, Lq=1100, Lt=70):
+    """`sw_edge_pairs` plus rows 16-23 around the strip edge (query rows
+    1024 | 1025): row 16 holds a 20-base motif M' ending at query row
+    1000 and M ending at row 1025 against the target M + 10 random + M',
+    two cells of equal score of which the second strip's has the lower
+    d; row 17 the same with M ending at row 1024 and M' at 1045 where
+    the query holds it (the first strip's cell has the lower d); rows
+    18-19 two-letter pairs (ties everywhere); rows 20-22 poly-A queries
+    of 1023, 1024 and 1025 rows against poly-A targets (fit mode's one
+    candidate row at the edge); row 23 a query of Lq rows against a
+    target of one base. Lq >= 1025, Lt >= 60, B >= 24."""
+    q, ql, t, tl = sw_edge_pairs(seed, B, Lq, Lt)
+    rng = np.random.default_rng(seed + 1)
+    m = 20
+    for r, end, end2 in ((16, 1025, 1000), (17, 1024, 1045)):
+        mot, mot2 = (rng.integers(0, 4, m).astype(np.int8) for _ in range(2))
+        q[r] = rng.integers(0, 4, Lq)
+        q[r, end - m:end] = mot
+        if end2 <= Lq:
+            q[r, end2 - m:end2] = mot2
+        t[r] = rng.integers(0, 4, Lt)
+        t[r, :m] = mot
+        t[r, 2 * m:3 * m] = mot2
+        ql[r], tl[r] = Lq, 3 * m
+    for r in (18, 19):
+        q[r] = rng.integers(0, 2, Lq)
+        t[r] = rng.integers(0, 2, Lt)
+        ql[r], tl[r] = Lq - (r - 18) * 7, Lt - (r - 18) * 3
+    for r, n in zip((20, 21, 22), (1023, 1024, 1025)):
+        q[r] = 0
+        t[r] = 0
+        ql[r], tl[r] = n, Lt
+    ql[23], tl[23] = Lq, 1
+    return q, ql, t, tl
+
+
+def driver_workspace(root, args, rowtab, hold_back=(), step: int = 4):
+    """Write the Assembly+Pick driver's inputs for the scenario of
+    `parallel.slice.example_data` into a Workspace at `root`, as Collect
+    would leave them: gaps.npz (scaffold 0, numbers from 1, start/end,
+    the flanks and their lengths), recruits.npz (gap, side, lib, row, hq;
+    every read of a gap's `rowtab` row, high quality) and
+    both_unmapped.npz (lib, side, row). The reads lying wholly inside
+    each gap of `hold_back` are moved from its recruits to the
+    both-unmapped pairs, so that round 1 cannot close it and rescue
+    must bring them back.
+
+    Returns (ws, rec, readsets, fills, held): the Workspace, the recruit
+    columns, the one library's read sets, the planted bases of each gap
+    (`example_fills`) and the number of reads held back from each gap of
+    `hold_back`."""
+    from .parallel import slice as sl
+    from .pipeline.workspace import Workspace
+    readsets, per_gap, gaps = sl.example_reads(args, rowtab)
+    fills = sl.example_fills(args, per_gap, step)
+    read_len = np.asarray(args[22]).shape[1]
+    margin = read_len - 8
+    G = len(per_gap)
+    glen = np.asarray(args[17]) - np.asarray(args[16])
+    rec = {k: [] for k in ("gap", "side", "lib", "row", "hq")}
+    bu = {k: [] for k in ("lib", "side", "row")}
+    held = {}
+    for g, rows in enumerate(per_gap):
+        for i, (lib, side, row) in enumerate(sorted(rows)):
+            a = i * step - margin          # read start, gap-relative
+            if g in hold_back and a >= 0 and a + read_len <= glen[g]:
+                held[g] = held.get(g, 0) + 1
+                for k, v in zip(("lib", "side", "row"), (lib, side, row)):
+                    bu[k].append(v)
+                continue
+            for k, v in zip(("gap", "side", "lib", "row", "hq"),
+                            (g, side, lib, row, 1)):
+                rec[k].append(v)
+    rec = {k: np.asarray(v, np.int32) for k, v in rec.items()}
+    ws = Workspace(str(root))
+    fl, fr = gaps["flank_left"], gaps["flank_right"]
+    ws.save_arrays(
+        "gaps", scaffold=np.zeros(G, np.int32),
+        number=np.arange(1, G + 1, dtype=np.int32),
+        start=gaps["start"], end=gaps["end"], flank_left=fl, flank_right=fr,
+        flank_left_len=np.full(G, fl.shape[1], np.int32),
+        flank_right_len=np.full(G, fr.shape[1], np.int32))
+    ws.save_arrays("recruits", **rec)
+    ws.save_arrays("both_unmapped",
+                   **{k: np.asarray(v, np.int32) for k, v in bu.items()})
+    return ws, rec, readsets, fills, held

@@ -1,6 +1,7 @@
 """The port's CUDA paths on a card: the SW, sort and probe kernels
-against their plain versions, and the fused step and the Assembly batch
-on the card against their CPU runs. These
+against their plain versions, and the fused step, the Assembly batch,
+Pick and the Assembly+Pick driver on the card against their CPU runs.
+These
 tests need a CUDA device and skip elsewhere; they import no JAX, so
 they also run where only the port's dependencies are installed:
 
@@ -18,8 +19,10 @@ from gappadder_tpu_torch.probes import int16_repro, swprobe
 from gappadder_tpu_torch.probes import kernel_experiments as ke
 from gappadder_tpu_torch.testcases import (ARGMAX_INPUTS, INT16_LOOP_INPUTS,
                                            SORT_CASES, SW_EDGE_SHAPES,
+                                           SW_STRIP_SHAPES, driver_workspace,
                                            probe_input, sort_case,
-                                           sw_edge_pairs, sw_test_pairs)
+                                           sw_edge_pairs, sw_strip_pairs,
+                                           sw_test_pairs)
 
 MODES = ["local", "overlap", "fit", "extend"]
 
@@ -165,16 +168,94 @@ def test_pick_on_card_matches_cpu(cuda):
 
 @pytest.mark.gpu
 def test_sw_pairs_refuses_flanks_beyond_the_kernel(cuda):
-    """A flank longer than the kernel's 1024 query rows raises on the
-    card; it never runs the plain version instead."""
+    """A query longer than one strip of 1024 rows runs in the kernel's
+    strips on the card (one launch) and equals the plain version; the
+    wrapper still refuses what the kernel does not take."""
     from gappadder_tpu_torch.ops import swutil
-    q = np.zeros((2, 1100), np.int8)
+    rng = np.random.default_rng(5)
+    q = rng.integers(0, 4, (2, 1100)).astype(np.int8)
     ql = np.full(2, 1100, np.int32)
+    t = q[:, 500:600].copy()
     before = sw_cuda.launches
-    with pytest.raises(ValueError, match="Lq"):
-        swutil.sw_pairs(q, ql, q[:, :100], ql // 11, sw_host.BWA_PARAMS,
-                        "local", device=cuda)
-    assert sw_cuda.launches == before
+    got = swutil.sw_pairs(q, ql, t, ql // 11, sw_host.BWA_PARAMS, "local",
+                          device=cuda)
+    assert sw_cuda.launches == before + 1
+    want = swutil.sw_pairs(q, ql, t, ql // 11, sw_host.BWA_PARAMS, "local",
+                           device="cpu")
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert (got[0] == 100).all()
+    with pytest.raises(TypeError):
+        sw_cuda.sw_batch_cuda(*[torch.from_numpy(x).to(cuda).long()
+                                for x in (q, ql, t, ql)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("shape", SW_STRIP_SHAPES + ((64, 2048, 2048),),
+                         ids=lambda s: f"{s[0]}x{s[1]}x{s[2]}")
+def test_kernel_matches_plain_in_strips(cuda, mode, shape):
+    """Queries of two and three strips of 1024 rows, ties on both sides
+    of the strip edge, and the merge screens' 2048 x 2048 bucket; overlap
+    mode with an end slack of 50 and one that spans the strips."""
+    B, Lq, Lt = shape
+    q, ql, t, tl = sw_strip_pairs(Lq + Lt, B, Lq, Lt)
+    args = [torch.from_numpy(x).to(cuda) for x in (q, ql, t, tl)]
+    params = sw_host.SWParams(2, -3, 5, 2) if Lq % 2 else sw_host.BWA_PARAMS
+    for slack in ((50, 1100) if mode == "overlap" else (0,)):
+        got = sw_cuda.sw_batch_cuda(*args, params, mode, slack)
+        want = sw_cuda.sw_batch_plain(*args, params, mode, slack)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+def _driver_scenario(tmp_path, name):
+    """chip_smoke.py's toy driver scenarios: round 1 closes every gap,
+    or every gap's inside reads are held back for rescue."""
+    from gappadder_tpu_torch.config import Config
+    kset = ((17, 15), (21, 19))
+    kw, hold = {"round1": (dict(gap_len=(64, 160)), ()),
+                "rescue": (dict(gap_len=(84, 100), seed=1), (0, 1, 2))}[name]
+    dims, args = sl.example_data(1, gaps_per_shard=3, kset=kset, **kw)
+    rowtab = sl.run_step(dims, args, device="cpu")[4].numpy()
+    out = []
+    for sub in ("card", "cpu"):
+        ws, rec, readsets, fills, _ = driver_workspace(
+            tmp_path / sub, args, rowtab, hold)
+        out.append((ws, rec, readsets))
+    return Config(draft_genome="d.fa", kmers=kset), out, fills
+
+
+def _plain_values(x):
+    """Nested dicts, tuples and arrays as plain Python values."""
+    if isinstance(x, dict):
+        return {k: _plain_values(v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return [_plain_values(v) for v in x]
+    if isinstance(x, np.ndarray):
+        return (x.dtype.str, x.tolist())
+    return x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["round1", "rescue"])
+def test_driver_on_card_matches_cpu(cuda, tmp_path, name):
+    from gappadder_tpu_torch.pipeline import run
+    cfg, ((ws, rec, rs), (cws, crec, crs)), fills = _driver_scenario(
+        tmp_path, name)
+    sws, sorts = sw_cuda.launches, psort.launches
+    got = run.run_assembly_and_pick(cfg, ws, rec, rs, device=cuda)
+    assert sw_cuda.launches > sws and psort.launches > sorts
+    want = run.run_assembly_and_pick(cfg, cws, crec, crs, device="cpu")
+    for name_ in ("picked_seqs.fa", "picked_seqs.fa_ori.txt",
+                  "merge_info.txt"):
+        with open(ws.path(name_), "rb") as a, open(cws.path(name_), "rb") as b:
+            assert a.read() == b.read(), name_
+    for g, w in zip(got, want):        # fills, exts, contig store
+        assert _plain_values(g) == _plain_values(w)
+    assert sorted(got[0]) == [0, 1, 2]
+    for g, (seq, _) in got[0].items():
+        np.testing.assert_array_equal(seq, fills[g])
 
 
 def _same_and_counted(key, kernel, plain):

@@ -77,7 +77,10 @@ def test_kernel_modules_import_without_cuda():
 SLICE_MODULES = ["config", "utils.log", "io.fastq", "ops.swutil",
                  "pipeline.fused", "pipeline.pick", "pipeline.run",
                  "probes.__init__", "probes.kernel_experiments",
-                 "probes.swprobe", "probes.int16_repro"]
+                 "probes.swprobe", "probes.int16_repro", "io.fasta",
+                 "ops.evaluate_dp", "ops.merge_engine", "ops.seedmatch",
+                 "parallel.mp", "pipeline.preprocess", "pipeline.rescue",
+                 "pipeline.workspace", "testcases"]
 
 
 @pytest.mark.parametrize("mod", SLICE_MODULES)
@@ -165,3 +168,55 @@ def test_probe_entry_points_refuse_without_gpu(monkeypatch, entry):
     out = call(device="cpu")
     assert out.device.type == "cpu" and out.numel() > 0
     assert probes.launches == before
+
+
+@pytest.fixture(scope="module")
+def driver_inputs(tmp_path_factory):
+    """A one-gap toy workspace written without JAX, built once."""
+    from gappadder_tpu_torch.config import Config
+    from gappadder_tpu_torch.parallel import slice as sl
+    from gappadder_tpu_torch.testcases import driver_workspace
+    kset = ((17, 15),)
+    dims, args = sl.example_data(1, gaps_per_shard=1, kset=kset)
+    rowtab = sl.run_step(dims, args, device="cpu")[4].numpy()
+    ws, rec, readsets, _, _ = driver_workspace(
+        tmp_path_factory.mktemp("driver"), args, rowtab)
+    return Config(draft_genome="d.fa", kmers=kset), ws, rec, readsets
+
+
+def _driver_entries(cfg, ws, rec, readsets):
+    """The driver's entry points on the toy workspace."""
+    from gappadder_tpu_torch.ops import evaluate_dp, merge_engine
+    from gappadder_tpu_torch.pipeline import rescue, run
+    rng = np.random.default_rng(0)
+    contigs = [rng.integers(0, 4, 90).astype(np.int8) for _ in range(2)]
+    store = {0: run._tuple_from_list(contigs, ["a", "b"])}
+    return {
+        "run_assembly_and_pick": lambda **kw: run.run_assembly_and_pick(
+            cfg, ws, rec, readsets, **kw),
+        "eval_pairs_device": lambda **kw: evaluate_dp.eval_pairs_device(
+            [tuple(contigs)], 50, **kw),
+        "dedup_contigs_multi": lambda **kw: merge_engine.dedup_contigs_multi(
+            [contigs], merge_engine.MergeConfig(), **kw),
+        "rescue_both_unmapped": lambda **kw: rescue.rescue_both_unmapped(
+            cfg, ws, readsets, store, [0], **kw),
+        "hq_pseudo_contigs": lambda **kw: rescue.hq_pseudo_contigs(
+            cfg, 0, store, readsets, [(0, 0, 0)], **kw),
+    }
+
+
+@pytest.mark.parametrize("entry", ["run_assembly_and_pick",
+                                   "eval_pairs_device", "dedup_contigs_multi",
+                                   "rescue_both_unmapped",
+                                   "hq_pseudo_contigs"])
+def test_driver_entry_points_refuse_without_gpu(monkeypatch, driver_inputs,
+                                                entry):
+    """The driver and its device stages run on the card unless asked for
+    the CPU, and raise without a card; nothing falls back on its own."""
+    call = _driver_entries(*driver_inputs)[entry]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call(device="cuda")
+    assert call(device="cpu") is not None

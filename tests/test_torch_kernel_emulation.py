@@ -24,8 +24,9 @@ import torch
 
 from gappadder_tpu_torch.ops import cuda_build, psort, sw_cuda
 from gappadder_tpu_torch.ops.sw_host import BWA_PARAMS, SWParams
-from gappadder_tpu_torch.testcases import (SW_EDGE_SHAPES, sort_case,
-                                           sw_edge_pairs, sw_test_pairs)
+from gappadder_tpu_torch.testcases import (SW_EDGE_SHAPES, SW_STRIP_SHAPES,
+                                           sort_case, sw_edge_pairs,
+                                           sw_strip_pairs, sw_test_pairs)
 
 EMULATION = r"""
 #pragma once
@@ -111,6 +112,11 @@ template <class T> T exchange(T v, int src) {
 }  // namespace emu
 
 inline void __syncthreads() { emu::blk->bar->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  emu::warp().bar.arrive_and_wait();
+}
+struct int2 { int x, y; };
+inline int2 make_int2(int x, int y) { return {x, y}; }
 template <class T> T __shfl_up_sync(unsigned, T v, unsigned d) {
   const int l = emu::lane();
   return emu::exchange(v, l >= (int)d ? l - (int)d : l);
@@ -143,6 +149,18 @@ def _translate(src: str) -> str:
                  r"\1* \2 = reinterpret_cast<\1*>(emu::dyn_smem());", src)
     return re.sub(r"([\w:]+(?:<[^;()]*?>)?)\s*<<<([^>]*)>>>\(",
                   r"emu::launch(\2, &\1, ", src)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The plain versions run thousands of small tensor steps; one
+    intra-op thread runs them about as fast as a pool and leaves the
+    host's cores to the emulated kernels' threads and the other test
+    workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -228,17 +246,22 @@ def test_emulated_sort_kernel_takes_strided_planes_and_wide_keys(emulated):
 
 
 def _emulated_sw(lib, q, ql, t, tl, params, mode, slack):
-    """sw_cuda.sw_batch_cuda's launch, on CPU buffers."""
+    """sw_cuda.sw_batch_cuda's launch, on CPU buffers (the strips'
+    scratch rows filled with garbage first)."""
     B, Lq = q.shape
+    Lt = t.shape[1]
     out = [torch.full((B,), -5, dtype=torch.int32) for _ in range(3)]
+    scratch = (torch.full((B, Lq + Lt, 2), -77, dtype=torch.int32)
+               if Lq > sw_cuda.STRIP_ROWS else None)
     fn = lib.sw_batch_launch
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, vp] + [ci] * 9 + [vp, vp, vp, vp]
+    fn.argtypes = [vp, vp, vp, vp] + [ci] * 9 + [vp] * 5
     fn.restype = ci
     assert fn(q.data_ptr(), ql.data_ptr(), t.data_ptr(), tl.data_ptr(), B,
-              Lq, t.shape[1], params.match, params.mismatch,
+              Lq, Lt, params.match, params.mismatch,
               params.gap_open, params.gap_extend, sw_cuda.MODES[mode], slack,
-              *[o.data_ptr() for o in out], None) == 0
+              *[o.data_ptr() for o in out],
+              None if scratch is None else scratch.data_ptr(), None) == 0
     return out
 
 
@@ -279,3 +302,21 @@ def test_emulated_sw_kernel_at_band_edges(emulated, shape):
     for mode in ("local", "overlap", "fit", "extend"):
         _check_sw(lib, (q, ql, t, tl), SWParams(2, -3, 5, 2), mode,
                   2 if mode == "overlap" else 0)
+
+
+@pytest.mark.parametrize("mode", ["local", "overlap", "fit", "extend"])
+@pytest.mark.parametrize("shape", SW_STRIP_SHAPES,
+                         ids=lambda s: f"{s[0]}x{s[1]}x{s[2]}")
+def test_emulated_sw_kernel_in_strips(emulated, shape, mode):
+    """Queries of two and three strips of 1024 rows: ties whose best
+    cells lie on either side of the strip edge, two-letter pairs, poly-A
+    queries of 1023-1025 rows (fit mode's candidate row at the edge),
+    targets longer than their row and, in overlap mode, an end slack of
+    1100 rows and columns that spans every strip."""
+    lib = emulated("sw")
+    B, Lq, Lt = shape
+    q, ql, t, tl = sw_strip_pairs(Lq + Lt, B, Lq, Lt)
+    tl[8:10] = Lt + np.array([5, Lq])
+    params = BWA_PARAMS if Lq % 2 else SWParams(2, -3, 5, 2)
+    for slack in ((2, 1100) if mode == "overlap" else (0,)):
+        _check_sw(lib, (q, ql, t, tl), params, mode, slack)

@@ -12,8 +12,21 @@ import torch
 from gappadder_tpu.ops import sw_pallas, sw_xla
 from gappadder_tpu.ops.sw_host import SWParams as JSWParams
 from gappadder_tpu_torch.ops import sw_cuda, sw_host
-from gappadder_tpu_torch.testcases import SW_EDGE_SHAPES, sw_edge_pairs
+from gappadder_tpu_torch.testcases import (SW_EDGE_SHAPES, SW_STRIP_SHAPES,
+                                           sw_edge_pairs, sw_strip_pairs)
 from gappadder_tpu_torch.testcases import sw_test_pairs as _pairs
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: the plain DPs run thousands of small tensor
+    steps, which a pool of threads does not speed up, and the pool's
+    waiting threads slow the other test workers on the same cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 MODES = ["local", "overlap", "fit", "extend"]
 PARAMS = [(1, -4, 7, 1), (1, -1, 1, 1), (2, -3, 5, 2)]
@@ -130,22 +143,44 @@ def test_plain_matches_sw_xla_at_band_edges(shape):
         np.testing.assert_array_equal(g, np.asarray(w))
 
 
-@pytest.mark.parametrize("Lq", [1, 32, 33, 300, 320, 321, 1024])
+@pytest.mark.parametrize("Lq", [1, 32, 33, 300, 320, 321, 1024, 1025, 2048,
+                                2055])
 def test_cell_slots_counts_the_kernel_sweep(Lq):
     """cell_slots equals a cell-by-cell count of the kernel's schedule:
     32 lanes of R rows stepping through every column of the pair, from
-    the first lane's first column to the last live lane's last."""
+    the first lane's first column to the last live lane's last, once
+    for each strip of 32 R rows."""
     R = sw_cuda.rows_per_lane(Lq)
-    assert 32 * R >= Lq and (R == sw_cuda.ROWS_PER_LANE[0]
-                             or 32 * sw_cuda.ROWS_PER_LANE[
-                                 sw_cuda.ROWS_PER_LANE.index(R) - 1] < Lq)
+    if Lq <= 32 * 32:
+        assert 32 * R >= Lq and (R == sw_cuda.ROWS_PER_LANE[0]
+                                 or 32 * sw_cuda.ROWS_PER_LANE[
+                                     sw_cuda.ROWS_PER_LANE.index(R) - 1] < Lq)
+    else:
+        assert R == 32 and sw_cuda.strips(Lq) == -(-Lq // 1024)
     Lt = 50
     ql = np.array([0, 1, Lq, max(Lq - 7, 1), Lq, Lq], np.int32)
     tl = np.array([5, 9, 0, Lt, 1, 31], np.int32)
     want = 0
     for q, t in zip(ql, tl):
-        if q > 0 and t > 0:
-            last_lane = (min(q, Lq) - 1) // R
+        for base in range(0, int(q) if t > 0 else 0, 32 * R):
+            last_lane = (min(q - base, 32 * R) - 1) // R
             want += 32 * R * (t + last_lane)
     assert sw_cuda.cell_slots(torch.from_numpy(ql), torch.from_numpy(tl),
                               Lq, Lt) == want
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_plain_matches_sw_xla_past_one_strip(mode):
+    """Queries longer than the kernel's 1024-row strip (whole contigs,
+    as the merge's screens send them), with ties on both sides of the
+    strip edge, against sw_xla in all four modes; overlap mode with an
+    end slack that spans the strips."""
+    B, Lq, Lt = SW_STRIP_SHAPES[1]
+    q, ql, t, tl = sw_strip_pairs(7, B, Lq, Lt)
+    slack = 1100 if mode == "overlap" else 0
+    want = sw_xla.sw_batch(jnp.asarray(q), jnp.asarray(ql), jnp.asarray(t),
+                           jnp.asarray(tl), JSWParams(1, -4, 7, 1), mode,
+                           end_slack=slack)
+    got = _plain(q, ql, t, tl, (1, -4, 7, 1), mode, slack)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, np.asarray(w))
