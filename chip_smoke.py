@@ -30,6 +30,14 @@ reads of its 8 gaps nearest 250 bp held back for rescue, which must fill
 all 64 gaps with the planted bases; every SW and sort call of that run
 is held to the plain version on its own inputs, and the `driver_time`
 line gives each stage's host-clock ms and the SW kernel at the merge's
+shapes. Then the ingest chain on files (`testcases.collect_scenario`: a
+4.6 Mbp draft with 64 gaps, 4 of them open, a paired-end library at 30x
+and a mate-pair one at 5x, written as FASTA, BAM and FASTQ): Preprocess,
+Collect, the driver and Patch on the card, Preprocess and Collect held
+to the CPU run file for file, every sort and SW call shape held to the
+plain version, the 60 closable gaps filled with the planted bases and
+filled_scaffolds.fa equal to the truth over them; the `collect_time`
+line gives each part's host-clock ms and the sort kernel at Collect's
 shapes.
 
 Prints JSON lines along the way; the line before the last is the
@@ -674,6 +682,16 @@ def main() -> int:
     emit(phase="driver", **drv.pop("check"), launches=launches["driver"])
     emit(phase="driver_time", **drv, smi=card)
 
+    # ---- phase 12: the ingest chain (Preprocess -> Collect -> driver ->
+    # Patch) on files ------------------------------------------------------
+    t = time.perf_counter()
+    chain = chain_phase(dev, reset_counts, read_counts)
+    launches["chain"] = chain["launches"]
+    emit(phase="chain", **chain["check"], launches=launches["chain"],
+         collect_launches=chain["collect_launches"])
+    emit(phase="collect_time", **chain["time"],
+         phase_s=time.perf_counter() - t, smi=card)
+
     probe_rows = [{
         "name": name, "route": "cuda",
         "source": "gappadder_tpu_torch/csrc/probes.cu", "replaces": where,
@@ -712,11 +730,13 @@ def main() -> int:
         "library_ms": sort["step_library_ms"],
         "launches_by_path": {p: v["sort"] for p, v in launches.items()},
         "seedmatch_rows": drv["seedmatch_sorts"],
+        "collect_shapes": chain["time"]["collect_sorts"],
         "check": "exact equality with bitonic_sort_plain in every plane, "
-                 "on every call shape of the driver path too; times are "
-                 "the sums over one production step's sort calls "
+                 "on every call shape of the driver and chain paths too; "
+                 "times are the sums over one production step's sort calls "
                  "(sort_time line), the seed matcher's rows in the "
-                 "driver_time line"}, *probe_rows])
+                 "driver_time line, Collect's shapes in the collect_time "
+                 "line"}, *probe_rows])
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -958,25 +978,9 @@ def driver_phase(pargs, rowtab, dev, ops_s, reset_counts,
                                  f"{clock.rescued}, closed by "
                                  f"{clock.closed_by}")
 
-    # every SW call shape of the run == plain on that call's own inputs
-    sw_keys: dict = {}
-    for lab, args, params, mode, slack in clock.sw_calls:
-        key = (mode, tuple(args[0].shape), tuple(args[2].shape), params,
-               slack)
-        n, labs, _ = sw_keys.get(key, (0, set(), None))
-        sw_keys[key] = (n + 1, labs | {lab}, args)
-    del clock.sw_calls
-    held_sw = []
-    for (mode, qs, ts, params, slack), (n, labs, args) in sw_keys.items():
-        check_sw(sw_cuda, *args, params, mode, slack, dev)
-        held_sw.append([mode, qs[0], qs[1], ts[1], slack, n, sorted(labs)])
+    sw_keys, held_sw, held_sort = hold_driver_calls(clock, dev)
     if not any(qs[1] > sw_cuda.STRIP_ROWS for _, qs, _, _, _ in sw_keys):
         raise AssertionError("the driver made no SW call with Lq > 1024")
-    # every sort call shape == plain on its own planes
-    held_sort = []
-    for (shape, nk, npay), (n, labs, ops) in sorted(clock.sorts.items()):
-        check_sort(psort, ops, nk)
-        held_sort.append([list(shape), nk, npay, n, sorted(labs)])
     check.update(n_gaps=len(glens), filled=len(fills), extended=len(exts),
                  equal_planted=True, held_back=hold,
                  held_back_reads={str(g): held.get(g, 0) for g in hold},
@@ -1029,6 +1033,280 @@ def driver_phase(pargs, rowtab, dev, ops_s, reset_counts,
             "stage_ms": clock.ms, "refine": refine, "counts": clock.counts,
             "sw_by_mode": by_mode, "sw_merge_shapes": merge_shapes,
             "seedmatch_sorts": seed_sorts}
+
+
+def same_arrays(a: dict, b: dict, what: str) -> None:
+    """Two .npz contents equal: names, dtypes, shapes and values."""
+    if sorted(a) != sorted(b):
+        raise AssertionError(f"{what}: arrays {sorted(a)} != {sorted(b)}")
+    for k in a:
+        if a[k].dtype != b[k].dtype or a[k].shape != b[k].shape or \
+                not np.array_equal(a[k], b[k]):
+            raise AssertionError(f"{what}: array {k} differs card vs CPU")
+
+
+def same_tree(root_a, root_b, sub: str) -> int:
+    """The files under `sub` of two workspaces equal byte for byte;
+    returns how many."""
+    da, db = os.path.join(root_a, sub), os.path.join(root_b, sub)
+    names = sorted(os.listdir(da))
+    if names != sorted(os.listdir(db)) or not names:
+        raise AssertionError(f"{sub}: files differ card vs CPU")
+    for nm in names:
+        with open(os.path.join(da, nm), "rb") as fa, \
+                open(os.path.join(db, nm), "rb") as fb:
+            if fa.read() != fb.read():
+                raise AssertionError(f"{sub}/{nm} differs card vs CPU")
+    return len(names)
+
+
+def install_collect_clock(clock, stack, ws, collect, preprocess, gapscan,
+                          fastq, recruit, counts):
+    """Time Collect's parts on the DriverClock `clock` (host ms between
+    two synchronisations of the card) and count what they see: records
+    decoded, focal candidates, the clip / disc / unmap hits of pass 1,
+    pass 2's entries."""
+    def wrap(module, name, label, after=None):
+        stack.enter_context(patched(module, name, clock.timed(
+            label, getattr(module, name), after)))
+
+    def add(key, n):
+        counts[key] = counts.get(key, 0) + int(n)
+
+    wrap(preprocess, "run_preprocess", "preprocess")
+    wrap(gapscan, "scan_genome", "preprocess_scan")
+    wrap(collect, "read_bam_any", "bam_decode",
+         lambda a, kw, out: add("records", out.n))
+    wrap(fastq, "scan_fastq", "fastq_scan",
+         lambda a, kw, out: add("fastq_reads", out.n))
+    wrap(collect, "_focal_candidate_rows", "focal_prefilter",
+         lambda a, kw, out: add("pass1_records", len(out)))
+    wrap(collect, "_pass1", "pass1")
+    wrap(collect, "_pass2", "pass2")
+    wrap(recruit, "recruit_on_device", "union")
+    wrap(collect, "_both_unmapped_rows", "both_unmapped")
+    wrap(collect, "_write_gap_fastqs", "gap_fastqs")
+    stack.enter_context(patched(ws, "save_arrays", clock.timed(
+        lambda a, kw: ("preprocess_npz" if "preprocess" in clock.stack
+                       else "npz_writes"), ws.save_arrays)))
+    step, low = collect.make_extract_step, collect._lowmapq_compact
+
+    def make(dims, ecap=1 << 15):
+        fn = step(dims, ecap)
+
+        def counted(mat, *windows):
+            packed, c3 = fn(mat, *windows)
+            for k, v in zip(("clip", "disc", "unmap"), c3.tolist()):
+                add(k, v)
+            return packed, c3
+        return counted
+
+    def low_counted(mat, windows, *, fanout, ecap):
+        out = low(mat, windows, fanout=fanout, ecap=ecap)
+        add("pass2_entries", min(int(out[0, 0]), ecap))
+        return out
+    stack.enter_context(patched(collect, "make_extract_step", make))
+    stack.enter_context(patched(collect, "_lowmapq_compact", low_counted))
+
+
+def chain_phase(dev, reset_counts, read_counts) -> dict:
+    """Phase 12, the ingest chain: `testcases.collect_scenario` at its
+    full size (4.6 Mbp draft, 64 gaps, 4 of them open; a paired-end
+    library at 30x and a mate-pair one at 5x) written as files, then
+    Preprocess -> Collect -> the two-round driver -> Patch on the card,
+    with the kernel counts reset before and read after. Preprocess and
+    Collect equal the port's CPU run on the same files; every sort call
+    shape of Collect and every SW and sort call shape of the driver are
+    held to the plain versions on their own inputs; every classification
+    branch has work; the fills are the planted bases, the open gaps end
+    as extensions or unfilled, and filled_scaffolds.fa is the truth over
+    every filled gap and N over every other. Returns {"check", "time",
+    "launches", "collect_sorts"}."""
+    import tempfile
+    from gappadder_tpu_torch.io import fasta, fastq, native
+    from gappadder_tpu_torch.ops import (gapscan, merge_engine, psort,
+                                         recruit, seedmatch, swutil)
+    from gappadder_tpu_torch.pipeline import (collect, fused, patch,
+                                              preprocess, rescue, run)
+    from gappadder_tpu_torch.pipeline.workspace import Workspace
+    from gappadder_tpu_torch.testcases import collect_scenario
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        cfg, truth = collect_scenario(os.path.join(tmp, "scenario"), seed=0)
+        sim_ms = (time.perf_counter() - t) * 1e3
+        cfgs = {w: dataclasses.replace(cfg, working_folder=os.path.join(
+            tmp, w)) for w in ("card", "cpu")}
+        ws = Workspace(cfgs["card"].workdir)
+        clock, counts = DriverClock(), {}
+        reset_counts()
+        with contextlib.ExitStack() as stack:
+            install_collect_clock(clock, stack, ws, collect, preprocess,
+                                  gapscan, fastq, recruit, counts)
+            collect_sorts = stack.enter_context(recording_sorts(psort))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            preprocess.run_preprocess(cfgs["card"], ws,
+                                      write_parity_files=True, device=dev)
+            collect.run_collect(cfgs["card"], ws, write_parity_files=True,
+                                device=dev)
+            torch.cuda.synchronize()
+            ingest_ms = (time.perf_counter() - t) * 1e3
+        collect_launches = read_counts()
+        ingest = dict(clock.ms)
+
+        # the driver and Patch on the card, from the workspace's files
+        dclock = DriverClock()
+        with contextlib.ExitStack() as stack:
+            dclock.install(stack, run, fused, rescue, seedmatch, merge_engine,
+                           swutil, psort)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fills, exts, _store = run.run_assembly_and_pick(
+                cfgs["card"], ws, device=dev)
+            torch.cuda.synchronize()
+            driver_ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        n_patched = patch.run_patch(cfgs["card"], ws)
+        patch_ms = (time.perf_counter() - t) * 1e3
+        launches = read_counts()
+        if min(launches["sw"], launches["sort"]) < 1 or \
+                collect_launches["sort"] < 1:
+            raise AssertionError(f"the chain launched {launches}, Collect "
+                                 f"{collect_launches}")
+
+        # Preprocess and Collect: the card == the port's CPU run
+        cws = Workspace(cfgs["cpu"].workdir)
+        t = time.perf_counter()
+        preprocess.run_preprocess(cfgs["cpu"], cws, write_parity_files=True,
+                                  device="cpu")
+        collect.run_collect(cfgs["cpu"], cws, write_parity_files=True,
+                            device="cpu")
+        cpu_ingest_ms = (time.perf_counter() - t) * 1e3
+        for name in ("gaps", "recruits", "both_unmapped"):
+            same_arrays(ws.load_arrays(name), cws.load_arrays(name), name)
+        for w in (ws, cws):
+            fasta.write_fai(cfg.draft_genome, w.path("draft.fa.fai"))
+        files = {sub: same_tree(ws.root, cws.root, sub)
+                 for sub in ("flank_regions", "merged/gap_reads",
+                             "merged/gap_reads_high_quality")}
+        for name in ("gap_positions.txt", "draft.fa.fai"):
+            with open(ws.path(name), "rb") as a, open(cws.path(name),
+                                                      "rb") as b:
+                if a.read() != b.read():
+                    raise AssertionError(f"{name} differs card vs CPU")
+            files[name] = 1
+        bu = len(ws.load_arrays("both_unmapped")["row"])
+        n_rec = len(ws.load_arrays("recruits")["gap"])
+
+        # every branch has work
+        branches = {k: counts.get(k, 0) for k in ("clip", "disc", "unmap",
+                                                  "pass2_entries")}
+        branches["both_unmapped_rows"] = bu
+        if min(branches.values()) < 1:
+            raise AssertionError(f"a classification branch is empty: "
+                                 f"{branches}")
+
+        # fills, extensions and the patched scaffolds against the truth
+        gaps, margin = truth["gaps"], truth["margin"]
+        planted = [truth["scaffolds"][s][a - margin:b + margin]
+                   for s, a, b in gaps]
+        wrong = [g for g in fills if not np.array_equal(fills[g][0],
+                                                        planted[g])]
+        opened = [g for g in truth["open"] if g in fills]
+        if wrong or opened:
+            raise AssertionError(f"chain: gaps {wrong} filled with other "
+                                 f"than the planted bases, open gaps "
+                                 f"{opened} filled")
+        closed = [g for g in range(len(gaps)) if g not in truth["open"]]
+        short = [g for g in closed if g not in fills]
+        for stage in ("hq", "final_pick"):
+            if stage not in dclock.ms:
+                raise AssertionError(f"the chain did not run {stage}")
+        if n_patched != len(fills):
+            raise AssertionError(f"Patch filled {n_patched} gaps, the "
+                                 f"driver {len(fills)}")
+        out = fasta.read_fasta(ws.path("filled_scaffolds.fa"))
+        for si, seq in enumerate(truth["scaffolds"]):
+            want = seq.copy()
+            for g in np.flatnonzero(gaps[:, 0] == si):
+                if g not in fills:
+                    want[gaps[g, 1]:gaps[g, 2]] = 4          # N
+            if not np.array_equal(out.scaffold(si), want):
+                raise AssertionError(f"filled_scaffolds.fa: scaffold {si} "
+                                     "is not the truth over its fills")
+        per_gap = ws.load_arrays("recruits")["gap"]
+        shortfall = {str(g): {"gap_len": int(gaps[g, 2] - gaps[g, 1]),
+                              "recruits": int((per_gap == g).sum()),
+                              "rescued": dclock.rescued.get(g, 0),
+                              "extended": g in exts} for g in short}
+    sw_keys, held_sw, held_sort = hold_driver_calls(dclock, dev)
+    held_collect = []
+    for (shape, nk, npay), (n, ops) in sorted(collect_sorts.items()):
+        check_sort(psort, ops, nk)
+        held_collect.append([list(shape), nk, npay, n])
+    sort_rows = sort_shape_times(psort, collect_sorts)
+    del collect_sorts, sw_keys
+    pass1_s = ingest.get("pass1", 0.0) / 1e3
+    check = {
+        "n_gaps": len(gaps), "open": truth["open"], "pairs": truth["pairs"],
+        "records": counts.get("records", 0), "recruits": n_rec,
+        "native_io": native.source(),
+        "card_equal_cpu": {"npz": ["gaps", "recruits", "both_unmapped"],
+                           "files": files},
+        "branches": branches,
+        "filled": len(fills), "filled_planted": len(fills),
+        "closable": len(closed), "unfilled_closable": short,
+        "shortfall": shortfall, "extended": sorted(exts),
+        "open_extended": [g for g in truth["open"] if g in exts],
+        "closed_by": dclock.closed_by,
+        "rescued_reads": {str(g): n for g, n in dclock.rescued.items()},
+        "hq_pseudo_contigs": dclock.counts.get("hq_pseudo_contigs", 0),
+        "filled_scaffolds_equal_truth": True,
+        "collect_sort_shapes_equal_plain": held_collect,
+        "driver_sw_shapes_equal_plain": held_sw,
+        "driver_sort_shapes_equal_plain": held_sort}
+    timing = {
+        "simulate_ms": sim_ms, "ingest_ms": ingest_ms,
+        "preprocess_ms": ingest.get("preprocess", 0.0),
+        "preprocess_scan_ms": ingest.get("preprocess_scan", 0.0),
+        "collect_ms": {k: ingest.get(k, 0.0) for k in (
+            "bam_decode", "fastq_scan", "focal_prefilter", "pass1", "pass2",
+            "union", "both_unmapped", "npz_writes", "gap_fastqs")},
+        "collect_total_ms": ingest_ms - ingest.get("preprocess", 0.0),
+        "cpu_ingest_ms": cpu_ingest_ms,
+        "pass1_records": counts.get("pass1_records", 0),
+        "pass1_records_per_s": counts.get("pass1_records", 0) / pass1_s
+        if pass1_s else None,
+        "driver_ms": driver_ms, "driver_stage_ms": dclock.ms,
+        "driver_counts": dclock.counts,
+        "patch_ms": patch_ms, "collect_sorts": sort_rows}
+    return {"check": check, "time": timing, "launches": launches,
+            "collect_launches": collect_launches}
+
+
+def hold_driver_calls(clock, dev):
+    """Every SW call shape a DriverClock recorded, held to the plain
+    version on that call's own inputs, and every sort call shape on its
+    own planes. Returns (sw_keys {(mode, q shape, t shape, params,
+    slack): (calls, stages, inputs)}, held SW rows, held sort rows)."""
+    from gappadder_tpu_torch.ops import psort, sw_cuda
+    sw_keys: dict = {}
+    for lab, args, params, mode, slack in clock.sw_calls:
+        key = (mode, tuple(args[0].shape), tuple(args[2].shape), params,
+               slack)
+        n, labs, _ = sw_keys.get(key, (0, set(), None))
+        sw_keys[key] = (n + 1, labs | {lab}, args)
+    clock.sw_calls = []
+    held_sw = []
+    for (mode, qs, ts, params, slack), (n, labs, args) in sw_keys.items():
+        check_sw(sw_cuda, *args, params, mode, slack, dev)
+        held_sw.append([mode, qs[0], qs[1], ts[1], slack, n, sorted(labs)])
+    held_sort = []
+    for (shape, nk, npay), (n, labs, ops) in sorted(clock.sorts.items()):
+        check_sort(psort, ops, nk)
+        held_sort.append([list(shape), nk, npay, n, sorted(labs)])
+    return sw_keys, held_sw, held_sort
 
 
 def sw_shape_time(sw_cuda, args, params, mode, slack, ops_s,
@@ -1094,51 +1372,59 @@ def library_sort(ops, nk):
 
 def sort_times(psort, step) -> dict:
     """The sort kernel at each distinct call shape of one production
-    step, on the step's own inputs: ms by CUDA events, device ms and
-    CUDA launches per call by the profiler; the plain sort; the library
-    sort where there is one (`library_sort`, held equal to the kernel's
-    result first); and the bytes bound of each shape. Sums over the
+    step, on the step's own inputs (`sort_shape_times`), summed over the
     step's calls (the library's only where every shape has one)."""
     with recording_sorts(psort) as calls:
         step()
-    shapes = []
+    shapes = sort_shape_times(psort, calls)
     tot = {"step_ms": 0.0, "step_device_ms": 0.0, "step_plain_ms": 0.0,
            "step_bound_ms": 0.0, "step_library_ms": 0.0,
            "step_cuda_launches": 0.0}
-    every_library = True
+    for r in shapes:
+        count = r["calls"]
+        for key, col in (("step_ms", "ms"), ("step_device_ms", "device_ms"),
+                         ("step_cuda_launches", "cuda_launches_per_call"),
+                         ("step_plain_ms", "plain_ms"),
+                         ("step_bound_ms", "bound_ms")):
+            tot[key] += count * r[col]
+        if r["library_ms"] is not None:
+            tot["step_library_ms"] += count * r["library_ms"]
+    if any(r["library_ms"] is None for r in shapes):
+        tot["step_library_ms"] = None
+    for r in shapes:
+        r["calls_per_step"] = r.pop("calls")
+    return dict(tot, calls_per_step=sum(c for c, _ in calls.values()),
+                shapes=shapes)
+
+
+def sort_shape_times(psort, calls) -> list:
+    """The sort kernel at each recorded call shape ({(shape, keys,
+    payloads): [calls, planes]}), on that call's own planes: ms by CUDA
+    events, device ms and CUDA launches per call by the profiler, the
+    plain sort, the library sort where there is one (`library_sort`,
+    held equal to the kernel's result first), and the bytes bound (each
+    plane read and written once, 8 bytes an element, at the HBM rate)."""
+    shapes = []
     for (shape, nk, npay), (count, ops) in sorted(calls.items()):
         elems = int(np.prod(shape))
         bound_ms = 2 * 8 * elems * (nk + npay) / HBM_BYTES_PER_S * 1e3
         kern_fn = lambda: psort.bitonic_sort(ops, nk)
         kern = cuda_ms(kern_fn, 10)
         dev_ms, cuda_launches = kernel_profile(kern_fn, 5, "psort_")
-        dev_ms, cuda_launches = dev_ms / 5, cuda_launches / 5
         plain = cuda_ms(lambda: psort.bitonic_sort_plain(ops, nk), 10)
         library = library_sort(ops, nk)
         lib = None
-        if library is None:
-            every_library = False
-        else:
+        if library is not None:
             for g, w in zip(library(), kern_fn()):
                 if not torch.equal(g, w):
                     raise AssertionError(f"library sort != kernel at {shape}")
             lib = cuda_ms(library, 10)
-            tot["step_library_ms"] += count * lib
         shapes.append({"shape": list(shape), "keys": nk, "payloads": npay,
-                       "calls_per_step": count, "ms": kern,
-                       "device_ms": dev_ms,
-                       "cuda_launches_per_call": cuda_launches,
+                       "calls": count, "ms": kern, "device_ms": dev_ms / 5,
+                       "cuda_launches_per_call": cuda_launches / 5,
                        "plain_ms": plain, "library_ms": lib,
                        "bound_ms": bound_ms})
-        tot["step_ms"] += count * kern
-        tot["step_device_ms"] += count * dev_ms
-        tot["step_cuda_launches"] += count * cuda_launches
-        tot["step_plain_ms"] += count * plain
-        tot["step_bound_ms"] += count * bound_ms
-    if not every_library:
-        tot["step_library_ms"] = None
-    return dict(tot, calls_per_step=sum(c for c, _ in calls.values()),
-                shapes=shapes)
+    return shapes
 
 
 def check_probes(ke, sp, ir, dev, fill_tiles: int) -> dict:
@@ -1329,8 +1615,10 @@ def kernel_device_ms(fn, reps: int, tag: str, tries: int = 3) -> float:
 
 def kernel_profile(fn, reps: int, tag: str) -> tuple:
     """Device milliseconds and count of the CUDA kernels whose name holds
-    `tag` over `reps` calls of fn, by torch.profiler (a small copy goes
-    first: a profiling run can miss its first launch)."""
+    `tag` over `reps` calls of fn, by torch.profiler. Eight small copies
+    go first and eight last: a profiling run can miss launches at its
+    edges (its first one; late in a long process on an H100, 4 of each
+    run)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1338,9 +1626,12 @@ def kernel_profile(fn, reps: int, tag: str) -> tuple:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        warm.add_(1)
+        for _ in range(8):
+            warm.add_(1)
         for _ in range(reps):
             fn()
+        for _ in range(8):
+            warm.add_(1)
         torch.cuda.synchronize()
     mine = [e for e in prof.events()
             if e.device_type == DeviceType.CUDA and tag in e.name]

@@ -5,8 +5,8 @@ package).
 The genome is stored as ONE concatenated int8 code array with a SEP
 sentinel between scaffolds (so N-run detection can never bridge two
 scaffolds) plus an offsets table. The writers give the JAX package's
-bytes: 80-column lines, an empty record as one empty line. The `.fai`
-writer comes with the Preprocess stage.
+bytes: 80-column lines, an empty record as one empty line; `write_fai`
+writes a samtools-compatible `.fai` index.
 """
 
 from __future__ import annotations
@@ -195,6 +195,54 @@ def write_fasta(path_or_fh, records, width: int = 80) -> None:
     finally:
         if own:
             fh.close()
+
+
+def fasta_string(records, width: int = 80) -> str:
+    buf = io.StringIO()
+    write_fasta(buf, records, width)
+    return buf.getvalue()
+
+
+def write_fai(fasta_path: str | os.PathLike,
+              out_path: str | os.PathLike | None = None) -> str:
+    """Write a samtools-compatible .fai index for a FASTA file (the
+    reference shells out `samtools faidx`, main.py:208-210).
+
+    Columns: name, length, byte offset of first base, bases per line,
+    bytes per line (incl. newline)."""
+    out_path = str(out_path or (str(fasta_path) + ".fai"))
+    rows = []
+    with open(fasta_path, "rb") as fh:
+        name = None
+        length = 0
+        offset = 0
+        linebases = 0
+        linewidth = 0
+        first_line = True
+        pos = 0
+        for line in fh:
+            ll = len(line)
+            stripped = line.rstrip(b"\r\n")
+            if stripped.startswith(b">"):
+                if name is not None:
+                    rows.append((name, length, offset, linebases, linewidth))
+                name = stripped[1:].split()[0].decode()
+                length = 0
+                offset = pos + ll
+                first_line = True
+            elif stripped:
+                if first_line:
+                    linebases = len(stripped)
+                    linewidth = ll
+                    first_line = False
+                length += len(stripped)
+            pos += ll
+        if name is not None:
+            rows.append((name, length, offset, linebases, linewidth))
+    with open(out_path, "w") as fh:
+        for r in rows:
+            fh.write("\t".join(str(x) for x in r) + "\n")
+    return out_path
 
 
 def fasta_string(records, width: int = 80) -> str:

@@ -4,9 +4,10 @@
 A FASTQ library is a columnar store: int8 sequence codes, lengths,
 qualities, and an FNV-1a 64-bit hash per read name. `ReadSet` holds the
 payloads; `LazyReadSet` holds only the hashes and byte offsets and
-reads a record's payload from the file when it is asked for. The scan
-here is the pure-Python pass; the JAX package's native scan gives the
-same arrays.
+reads a record's payload from the file when it is asked for. The
+readers, the scan and the writer take the native library
+(`io/native.py`) when it loads, else the pure-Python passes here, which
+give the same arrays and bytes.
 
 Read names are normalized like the reference: the token before the
 first whitespace, with a trailing "/1" / "/2" stripped.
@@ -32,6 +33,14 @@ def fnv1a(name: bytes) -> int:
     for b in name:
         h = ((h ^ b) * _FNV_PRIME) & _MASK64
     return h
+
+
+def _fnv1a_batch(names: list[bytes]) -> np.ndarray:
+    """FNV-1a 64-bit hashes of a list of names, as uint64."""
+    out = np.empty(len(names), np.uint64)
+    for i, nm in enumerate(names):
+        out[i] = fnv1a(nm)
+    return out
 
 
 def normalize_name(raw: bytes) -> bytes:
@@ -110,9 +119,32 @@ class LazyReadSet:
         o = int(self.name_off[row])
         return mm[o:o + int(self.name_len[row])]
 
+    def materialize(self, rows) -> ReadSet:
+        """Eager ReadSet of just `rows` (payloads read through mmap)."""
+        rows = np.asarray(rows, np.int64)
+        L = int(self.length[rows].max(initial=1)) if len(rows) else 1
+        seq = np.full((len(rows), L), dna.N, np.int8)
+        qual = np.zeros((len(rows), L), np.uint8)
+        length = np.zeros(len(rows), np.int32)
+        names = []
+        for i, r in enumerate(rows):
+            s = self.get_seq(int(r))
+            seq[i, :len(s)] = s
+            q = self.get_qual(int(r))
+            qual[i, :len(q)] = q
+            length[i] = len(s)
+            names.append(self.get_name(int(r)))
+        return ReadSet(seq=seq, length=length, qual=qual,
+                       name_hash=self.name_hash[rows], names=names)
+
 
 def scan_fastq(path: str | os.PathLike) -> LazyReadSet:
-    """Index a FASTQ without holding payloads (one pure-Python pass)."""
+    """Index a FASTQ without holding payloads (the native scan when the
+    library loads, else one pure-Python pass)."""
+    from . import native
+    res = native.scan_fastq_native(str(path))
+    if res is not None:
+        return LazyReadSet(path=str(path), **res)
     hashes, lens, seq_off, qual_off, name_off, name_len = \
         [], [], [], [], [], []
     max_len = 1
@@ -148,3 +180,76 @@ def scan_fastq(path: str | os.PathLike) -> LazyReadSet:
         name_off=np.asarray(name_off, np.int64),
         name_len=np.asarray(name_len, np.int32),
         max_len=max_len)
+
+
+def read_fastq(path: str | os.PathLike, max_len: int | None = None) -> ReadSet:
+    """A whole FASTQ as a ReadSet (pure Python; `pipeline.collect.
+    read_fastq_any` takes the native reader first)."""
+    names: list[bytes] = []
+    seqs: list[bytes] = []
+    quals: list[bytes] = []
+    with open(path, "rb") as fh:
+        while True:
+            h = fh.readline()
+            if not h:
+                break
+            s = fh.readline().rstrip()
+            fh.readline()  # '+'
+            q = fh.readline().rstrip()
+            names.append(normalize_name(h.rstrip()))
+            seqs.append(s)
+            quals.append(q)
+    n = len(names)
+    L = max_len or (max((len(s) for s in seqs), default=0) or 1)
+    seq = np.full((n, L), dna.N, np.int8)
+    qual = np.zeros((n, L), np.uint8)
+    length = np.zeros(n, np.int32)
+    for i, (s, q) in enumerate(zip(seqs, quals)):
+        m = min(len(s), L)
+        seq[i, :m] = dna.encode(s[:m])
+        qual[i, :m] = np.frombuffer(q[:m].ljust(m, b"5"), np.uint8)
+        length[i] = m
+    return ReadSet(seq=seq, length=length, qual=qual,
+                   name_hash=_fnv1a_batch(names), names=names)
+
+
+def subset(readset: ReadSet, rows) -> ReadSet:
+    """Row-select a ReadSet."""
+    rows = np.asarray(rows, np.int64)
+    return ReadSet(seq=readset.seq[rows], length=readset.length[rows],
+                   qual=readset.qual[rows],
+                   name_hash=readset.name_hash[rows],
+                   names=[readset.names[int(r)] for r in rows])
+
+
+def subset_by_names(readset: ReadSet, names) -> ReadSet:
+    """Subset by read names (bytes or str), in the order asked for."""
+    want = [n.encode() if isinstance(n, str) else n for n in names]
+    index = {}
+    for i, n in enumerate(readset.names):
+        index.setdefault(n, i)
+    rows = [index[n] for n in want if n in index]
+    return subset(readset, rows)
+
+
+def write_fastq(path_or_fh, readset, rows, suffix: str = "") -> None:
+    """Write selected rows as FASTQ, each name with `suffix` appended
+    (the reference renames reads to '<id>_1' / '<id>_2'). A path and a
+    ReadSet take the native writer when it loads."""
+    own = isinstance(path_or_fh, (str, os.PathLike))
+    if own and not isinstance(readset, LazyReadSet):
+        from . import native
+        if native.write_fastq_native(str(path_or_fh), readset, rows, suffix):
+            return
+    fh = open(path_or_fh, "w") if own else path_or_fh
+    try:
+        for r in rows:
+            r = int(r)
+            ln = int(readset.length[r])
+            name = readset.get_name(r).decode("ascii") + suffix
+            s = dna.decode(readset.get_seq(r)[:ln])
+            q = readset.get_qual(r)[:ln].tobytes().decode("ascii")
+            fh.write(f"@{name}\n{s}\n+\n{q}\n")
+    finally:
+        if own:
+            fh.close()

@@ -1,5 +1,6 @@
 """Read classification against gap focal windows (counterpart of
-gappadder_tpu/ops/classify.py: `build_gap_windows`, `classify_reads`).
+gappadder_tpu/ops/classify.py: `build_gap_windows`, `classify_reads`,
+`classify_lowmapq`).
 
 Coordinates are 0-based; the shifts reproduce the reference's mix of
 1-based SAM positions and 0-based gap coordinates.
@@ -15,6 +16,11 @@ Coordinates are 0-based; the shifts reproduce the reference's mix of
          |tlen| >= dist2 (short-insert libraries also |tlen| <= dist1);
          recruits the mate
   unmap: read mapped, mate unmapped; recruits the mate
+
+  low-mapq pass: reads with mapq == 0 whose position lies in
+  [mp - 199, mp + 299] of a recorded discordant mate position mp; where
+  several mate windows cover the position, only the largest mp wins
+  (the reference's dict overwrite); recruits the read itself.
 """
 
 from __future__ import annotations
@@ -85,3 +91,23 @@ def classify_reads(tid, pos, flag, mapq, mtid, mpos, tlen, lclip, rclip,
             "gap": torch.where(hit, gap, torch.full_like(gap, -1)),
             "clip": clip, "disc": disc, "unmap": unmap,
             "side_self": side_self, "side_mate": 1 - side_self}
+
+
+def classify_lowmapq(tid, pos, flag, mapq, mwtid, mwstart, mwend, mwgap,
+                     mwpos, fanout: int = 8):
+    """The low-mapq second pass against the discordant mate windows
+    (one row per (mate window, linked gap), sorted by (tid, start),
+    INT_MAX padded; `mwpos` is the recorded mate position).
+
+    Returns (gap [N, K], -1 where no window wins; side_self [N])."""
+    eligible = mapq == 0          # reference: `if map_quality>0: continue`
+    widx = interval_join(tid, pos, mwtid, mwstart, mwend, fanout=fanout)
+    hit = (widx >= 0) & eligible[:, None]
+    wc = widx.clamp(0, mwtid.shape[0] - 1)
+    neg = torch.full_like(widx, -1)
+    mp = torch.where(hit, mwpos[wc].to(torch.int64), neg)
+    best = mp.max(dim=1, keepdim=True).values
+    keep = hit & (mp == best)
+    gap = torch.where(keep, mwgap[wc].to(torch.int64), neg)
+    side_self = torch.where((flag & 0x40) != 0, 0, 1).to(torch.int32)
+    return gap.to(torch.int32), side_self

@@ -5,7 +5,8 @@ Windows are sorted by (tid, start); reads and window starts are sorted
 together on (tid, pos, tag) with windows first at equal positions; a
 cumsum of window tags gives, per read, how many windows start at or
 before it; the `fanout` windows before that count are checked for
-start <= pos <= end with a matching tid.
+start <= pos <= end with a matching tid. `max_overlap_np` gives the
+host the true maximum overlap, so that `fanout` drops no hit.
 """
 
 from __future__ import annotations
@@ -53,3 +54,20 @@ def interval_join(rtid, rpos, wtid, wstart, wend, fanout: int = 8):
     ok = (cand >= 0) & (wtid[cc] == rtid[:, None]) & \
         (wstart[cc] <= rpos[:, None]) & (rpos[:, None] <= wend[cc])
     return torch.where(ok, cand, torch.full_like(cand, -1))
+
+
+def max_overlap_np(tid, start, end) -> int:
+    """Host helper: the most windows overlapping any one position (the
+    `fanout` to ask for), at least 1."""
+    if len(tid) == 0:
+        return 1
+    events = []
+    for t, s, e in zip(tid, start, end):
+        events.append((int(t), int(s), 0))
+        events.append((int(t), int(e) + 1, 1))
+    events.sort()
+    best = cur = 0
+    for _, _, kind in events:
+        cur += 1 if kind == 0 else -1
+        best = max(best, cur)
+    return max(best, 1)

@@ -1,5 +1,6 @@
 """Recruitment union: dedup + FASTQ hash join (counterpart of
-gappadder_tpu/ops/recruit.py: `_split_hash`, `dedup_and_join`).
+gappadder_tpu/ops/recruit.py: `_split_hash`, `dedup_and_join`,
+`recruit_on_device`).
 
 (gap, side, name-hash) records are deduplicated and joined against a
 library's FASTQ name table with multi-key sorts. Hashes are 64-bit,
@@ -11,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import entry_device
 from . import psort
 
 I32MAX = 0x7FFFFFFF
@@ -77,3 +79,46 @@ def dedup_and_join(rec_gap, rec_side, rec_hi, rec_lo, rec_hq,
     valid = keep & (row_of >= 0)
     return (torch.where(valid, g, torch.full_like(g, -1)), s, row_of,
             hq_or.to(torch.bool), valid)
+
+
+def recruit_on_device(entries_gap, entries_side, entries_hash, entries_hq,
+                      readsets, device="cuda"):
+    """Collect's union of one library on `device` (the card unless the
+    caller asks for "cpu"): the recruitment entries (numpy: gap, side,
+    uint64 name hash, hq) deduplicated and joined to the concatenated
+    left + right FASTQ name tables of `readsets` by `dedup_and_join`.
+
+    Returns numpy gap / side / row (int32) and hq (bool), lexsorted by
+    (gap, side, row)."""
+    device = entry_device(device, "recruit_on_device")
+    z = np.zeros(0, np.int32)
+    empty = {"gap": z, "side": z, "row": z, "hq": np.zeros(0, bool)}
+    if len(entries_gap) == 0:
+        return empty
+    tbl_hi, tbl_lo, tbl_row, tbl_side = [], [], [], []
+    for side_val, rs in ((0, readsets[0]), (1, readsets[1])):
+        if rs is None or rs.n == 0:
+            continue
+        hi, lo = _split_hash(rs.name_hash)
+        tbl_hi.append(hi)
+        tbl_lo.append(lo)
+        tbl_row.append(np.arange(rs.n, dtype=np.int32))
+        tbl_side.append(np.full(rs.n, side_val, np.int32))
+    if not tbl_hi:
+        return empty
+    hi, lo = _split_hash(entries_hash)
+
+    def on(a, dtype=np.int64):
+        return torch.from_numpy(np.asarray(a).astype(dtype)).to(device)
+
+    with torch.no_grad():
+        res = dedup_and_join(
+            on(entries_gap), on(entries_side), on(hi), on(lo),
+            on(entries_hq, bool), on(np.concatenate(tbl_hi)),
+            on(np.concatenate(tbl_lo)), on(np.concatenate(tbl_row)),
+            on(np.concatenate(tbl_side)))
+    g, s, row, hq, m = (x.cpu().numpy() for x in res)
+    out = {"gap": g[m].astype(np.int32), "side": s[m].astype(np.int32),
+           "row": row[m].astype(np.int32), "hq": hq[m]}
+    order = np.lexsort((out["row"], out["side"], out["gap"]))
+    return {k: v[order] for k, v in out.items()}

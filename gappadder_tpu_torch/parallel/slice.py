@@ -109,12 +109,15 @@ def inputs_from_numpy(args, device) -> tuple:
 def _classify_extract(tid, pos, flag, mapq, mtid, mpos, tlen, lclip, rclip,
                       name_hi, name_lo,
                       wtid, wstart, wend, wgap, wedge, gap_start, gap_end,
-                      *, dims: SliceDims):
+                      *, dims: SliceDims, with_mates: bool = False):
     """Classify records against the gap windows and flatten the hits
     into entries (gap, side, hi, lo, hq, valid); sides are FASTQ-table
-    keys 2*lib + (0 left / 1 right). Also returns the class counts. The
-    JAX step's (mate_tid, mate_pos) columns feed only the collect stage
-    (a later slice of the port), so they are not built here."""
+    keys 2*lib + (0 left / 1 right). Returns (entries, counts3), or with
+    `with_mates` (Collect's pass 1) (entries, (mate_tid, mate_pos),
+    counts3): the mate columns aligned with the entries, the records'
+    mtid / mpos in the disc third and -1 in the clip and unmap thirds,
+    which Collect turns into its low-mapq pass-2 windows. The step does
+    not build them."""
     out = classify_reads(
         tid, pos, flag, mapq, mtid, mpos, tlen, lclip, rclip,
         wtid, wstart, wend, wgap, wedge, gap_start, gap_end,
@@ -128,13 +131,20 @@ def _classify_extract(tid, pos, flag, mapq, mtid, mpos, tlen, lclip, rclip,
                           ("unmap", "side_mate")):
         mask = out[kind]                       # [B, K]
         shape = mask.shape
-        cols = (out["gap"], out[sidekey] + 2 * dims.lib,
+        cols = [out["gap"], out[sidekey] + 2 * dims.lib,
                 name_hi[:, None].expand(shape), name_lo[:, None].expand(shape),
-                (mapq == dims.hq_mapq)[:, None].expand(shape), mask)
+                (mapq == dims.hq_mapq)[:, None].expand(shape), mask]
+        if with_mates:
+            for col in (mtid, mpos):
+                col = col if kind == "disc" else torch.full_like(col, -1)
+                cols.append(col[:, None].expand(shape))
         parts.append([c.reshape(-1) for c in cols])
-    gap, side, hi, lo, hq, valid = (
-        torch.cat([p[i] for p in parts]) for i in range(6))
-    return (gap, side, hi, lo, hq, valid & (gap >= 0)), counts3
+    cat = [torch.cat([p[i] for p in parts]) for i in range(len(parts[0]))]
+    gap, side, hi, lo, hq, valid = cat[:6]
+    entries = (gap, side, hi, lo, hq, valid & (gap >= 0))
+    if with_mates:
+        return entries, (cat[6], cat[7]), counts3
+    return entries, counts3
 
 
 # ---------------------------------------------------------------------------

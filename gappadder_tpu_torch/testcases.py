@@ -1,7 +1,9 @@
 """Inputs for holding the hand-written kernels against their plain
-versions: SW query/target pairs, the sort's cases and the probe
-kernels' inputs. Used by the tests and by chip_smoke.py; no pipeline
-path imports this module."""
+versions (SW query/target pairs, the sort's cases, the probe kernels'
+inputs) and scenarios written as files for the pipeline's stages (the
+Assembly driver's workspace, Collect's draft, BAM and FASTQs). Used by
+the tests and by chip_smoke.py; no pipeline path imports this
+module."""
 
 from __future__ import annotations
 
@@ -25,7 +27,10 @@ PRODUCTION_ENTRY_CAP = 69632
 # 76 wide tiles, odd run counts on the way up), and the seed matcher's
 # single rows near 2^20: the contig k-mer index (2 limbs + contig id and
 # position) and the read-to-index join (2 limbs + the index/query tag,
-# the row id)
+# the row id); and Collect's rows: the recruit join of one library of
+# 690,000 read pairs (M + R ~ 1.6 M, 4 keys + 2 payloads; ~1,600 tiles
+# of 1024, 11 merge passes) and the interval join of one read batch
+# (131,072 reads + 512 padded windows, 3 keys + 1 payload)
 SORT_CASES = {
     **{f"k{k}p{p}": ((3, 1000), k, p, "limbs")
        for k in range(1, 5) for p in range(3)},
@@ -53,6 +58,8 @@ SORT_CASES = {
     "row_77214_k4p2": ((77214,), 4, 2, "limbs"),
     "row_1m_k2p2": (((1 << 20) - 3,), 2, 2, "limbs"),
     "row_1m_k3p1": (((1 << 20) + 5,), 3, 1, "limbs"),
+    "row_1600000_k4p2": ((1_600_000,), 4, 2, "limbs"),
+    "row_131584_k3p1": ((131_072 + 512,), 3, 1, "limbs"),
 }
 
 
@@ -254,3 +261,189 @@ def driver_workspace(root, args, rowtab, hold_back=(), step: int = 4):
     ws.save_arrays("both_unmapped",
                    **{k: np.asarray(v, np.int32) for k, v in bu.items()})
     return ws, rec, readsets, fills, held
+
+
+# Collect's chip scenario: E. coli K-12 MG1655's size (4.64 Mbp) as 8
+# scaffolds of 575 kb with 8 gaps each (100-400 bp), and the reference's
+# two libraries (its configuration.json): paired ends of 300 +- 50 at
+# 30x and mate pairs of 30,000 +- 1,000 at 5x, 100 bp reads
+COLLECT_LIBRARIES = ((300, 50, 100, 30.0), (30_000, 1_000, 100, 5.0))
+PRODUCTION_KSET = ((30, 29), (30, 27), (40, 39), (40, 37), (50, 49),
+                   (50, 47))
+MIN_ANCHOR = 20         # a read needs 20 aligned bases beside a gap
+
+
+def _place(a, read_len, gs, ge):
+    """Where a mapper puts reads [a, a + read_len) (global coordinates)
+    against the gaps [gs, ge) (global, sorted): (mapped, pos, lclip,
+    rclip), pos global. A read overlapping a gap edge is soft-clipped on
+    the gap side when the longer anchor has MIN_ANCHOR bases, else it is
+    unmapped, as is a read wholly inside a gap."""
+    b = a + read_len
+    j = np.searchsorted(ge, a, side="right")
+    jc = np.minimum(j, len(gs) - 1)
+    ov = (j < len(gs)) & (gs[jc] < b)
+    left = np.maximum(gs[jc] - a, 0)
+    right = np.maximum(b - ge[jc], 0)
+    lkeep = ov & (left >= MIN_ANCHOR) & (left >= right)
+    rkeep = ov & ~lkeep & (right >= MIN_ANCHOR)
+    mapped = ~ov | lkeep | rkeep
+    pos = np.where(rkeep, ge[jc], a)
+    lclip = np.where(rkeep, read_len - right, 0)
+    rclip = np.where(lkeep, read_len - left, 0)
+    return mapped, pos, lclip, rclip
+
+
+def _fastq_bytes(names, seq, qual, mate: int) -> bytes:
+    """FASTQ records '@<name>/<mate>', fixed-width names and reads, built
+    as one byte array (no loop over reads)."""
+    n, L = seq.shape
+    w = names.shape[1]
+    rec = np.empty((n, 1 + w + 3 + L + 3 + L + 1), np.uint8)
+    rec[:, 0] = ord("@")
+    rec[:, 1:1 + w] = names
+    rec[:, 1 + w:4 + w] = np.frombuffer(f"/{mate}\n".encode(), np.uint8)
+    o = 4 + w
+    rec[:, o:o + L] = np.frombuffer(b"ACGTN", np.uint8)[seq]
+    rec[:, o + L:o + L + 3] = np.frombuffer(b"\n+\n", np.uint8)
+    rec[:, o + L + 3:o + 2 * L + 3] = qual
+    rec[:, -1] = ord("\n")
+    return rec.tobytes()
+
+
+def collect_scenario(root, seed: int = 0, *, n_scaffolds: int = 8,
+                     scaffold_len: int = 575_000, gaps_per_scaffold: int = 8,
+                     gap_len=(100, 400), libraries=COLLECT_LIBRARIES,
+                     n_open: int = 4, mapq0: float = 0.02,
+                     chimeric: float = 0.01, kmers=PRODUCTION_KSET):
+    """Write a draft, its BAMs and FASTQs into `root`, as a mapper would
+    leave them, and return (Config, truth) for the port's Preprocess ->
+    Collect -> Assembly -> Patch chain. Numpy, no loop over reads.
+
+    The truth is seeded random ACGT; the draft is the truth with each
+    gap's bases replaced by Ns. Each library (insert, std, read length,
+    coverage) samples FR pairs uniformly; `chimeric` of them take their
+    second read from another scaffold. A read over a gap edge is
+    soft-clipped on the gap side (unmapped below MIN_ANCHOR bases), a
+    read inside a gap is unmapped (flag 4, its mate flag 8) and placed at
+    its mate, a pair inside a gap is flagged 12; a mapped read has mapq
+    60 and an M-only CIGAR, except `mapq0` of them with mapq 0. The
+    `n_open` gaps keep no read of any library over their middle 50 bp,
+    so no round can close them.
+
+    truth: dict of "scaffolds" (int8 codes a scaffold), "gaps" (G x 3:
+    scaffold, local start, local end, in genome order), "open" (gap
+    indices), "margin" and "pairs" a library."""
+    import os
+    from . import dna
+    from .config import Config, Library
+    from .io import bam as bam_io
+    from .io import fasta as fasta_io
+    rng = np.random.default_rng(seed)
+    os.makedirs(root, exist_ok=True)
+    S, L = n_scaffolds, scaffold_len
+    truth = rng.integers(0, 4, S * L).astype(np.int8)
+    G = S * gaps_per_scaffold
+    span = L // gaps_per_scaffold
+    centre = (np.arange(gaps_per_scaffold) + 0.5) * span
+    glen = rng.integers(gap_len[0], gap_len[1] + 1, G)
+    jitter = rng.integers(-span // 4, span // 4 + 1, G)
+    local = (np.tile(centre, S) + jitter - glen // 2).astype(np.int64)
+    gs = np.repeat(np.arange(S), gaps_per_scaffold) * L + local
+    ge = gs + glen
+    draft = truth.copy()
+    for a, b in zip(gs, ge):
+        draft[a:b] = dna.N
+    open_gaps = np.sort(rng.choice(G, n_open, replace=False)) if n_open \
+        else np.zeros(0, np.int64)
+    mid = (gs[open_gaps] + ge[open_gaps]) // 2
+    os_, oe = mid - 25, mid + 25
+    names = [f"scaffold_{i}" for i in range(S)]
+    draft_path = os.path.join(root, "draft.fa")
+    fasta_io.write_fasta(draft_path, [(names[i], draft[i * L:(i + 1) * L])
+                                      for i in range(S)])
+
+    libs, pairs = [], []
+    for li, (insert, std, rl, cov) in enumerate(libraries):
+        n = int(round(cov * S * L / (2 * rl)))
+        scaf = rng.integers(0, S, n)
+        ins = np.clip(np.round(rng.normal(insert, std, n)), 2 * rl + 2,
+                      L - 2).astype(np.int64)
+        p = (rng.random(n) * (L - ins)).astype(np.int64)
+        a1 = scaf * L + p
+        a2 = a1 + ins - rl
+        chim = rng.random(n) < chimeric
+        scaf2 = np.where(chim, (scaf + rng.integers(1, S, n)) % S, scaf)
+        a2 = np.where(chim, scaf2 * L + (rng.random(n) * (L - rl)).astype(
+            np.int64), a2)
+        # no read over the middle 50 bp of an open gap
+        keep = np.ones(n, bool)
+        for a in (a1, a2):
+            j = np.searchsorted(oe, a, side="right")
+            jc = np.minimum(j, max(len(os_) - 1, 0))
+            if len(os_):
+                keep &= ~((j < len(os_)) & (os_[jc] < a + rl))
+        a1, a2, scaf, scaf2, ins, chim = (x[keep] for x in
+                                          (a1, a2, scaf, scaf2, ins, chim))
+        n = len(a1)
+        pairs.append(n)
+        offs = np.arange(rl)
+        seq1 = truth[a1[:, None] + offs]
+        seq2 = dna.COMPLEMENT[truth[a2[:, None] + (rl - 1 - offs)]]
+        q1, q2 = (rng.integers(53, 74, (n, rl)).astype(np.uint8)
+                  for _ in range(2))
+        nd = max(6, len(str(n)))
+        width = 4 + nd
+        digits = (np.arange(n)[:, None] // 10 ** np.arange(nd)[::-1]
+                  % 10 + ord("0")).astype(np.uint8)
+        nm = np.concatenate([np.broadcast_to(np.frombuffer(
+            f"l{li}p_".encode(), np.uint8), (n, 4)), digits], axis=1)
+
+        m1, pos1, lc1, rc1 = _place(a1, rl, gs, ge)
+        m2, pos2, lc2, rc2 = _place(a2, rl, gs, ge)
+        both = ~m1 & ~m2
+        # an unmapped read sits at its mate's place
+        t1, t2 = pos1 // L, pos2 // L
+        tid1 = np.where(m1, t1, np.where(m2, t2, -1))
+        tid2 = np.where(m2, t2, np.where(m1, t1, -1))
+        lp1 = np.where(m1, pos1 % L, np.where(m2, pos2 % L, -1))
+        lp2 = np.where(m2, pos2 % L, np.where(m1, pos1 % L, -1))
+        f1 = 0x1 | 0x40 | 0x20 | np.where(m1, 0, 0x4) | np.where(m2, 0, 0x8)
+        f2 = 0x1 | 0x80 | 0x10 | np.where(m2, 0, 0x4) | np.where(m1, 0, 0x8)
+        tl = np.where(both | chim, 0, ins)
+        mq1 = np.where(m1 & (rng.random(n) >= mapq0), 60, 0)
+        mq2 = np.where(m2 & (rng.random(n) >= mapq0), 60, 0)
+        cols = dict(
+            flag=np.concatenate([f1, f2]), tid=np.concatenate([tid1, tid2]),
+            pos=np.concatenate([lp1, lp2]), mapq=np.concatenate([mq1, mq2]),
+            mtid=np.concatenate([tid2, tid1]), mpos=np.concatenate([lp2, lp1]),
+            tlen=np.concatenate([tl, -tl]),
+            lclip=np.concatenate([np.where(m1, lc1, 0), np.where(m2, lc2, 0)]),
+            rclip=np.concatenate([np.where(m1, rc1, 0), np.where(m2, rc2, 0)]))
+        # coordinate-sorted, unplaced pairs last
+        key = np.where(cols["tid"] < 0, S * L, cols["tid"] * L + cols["pos"])
+        order = np.argsort(key, kind="stable")
+        both_names = np.concatenate([nm, nm])[order]
+        bam = os.path.join(root, f"lib{li}.bam")
+        bam_io.write_bam_columns(
+            bam, [(x, L) for x in names],
+            names=list(both_names.view(f"S{width}").reshape(-1)),
+            **{k: v[order].astype(np.int32) for k, v in cols.items()},
+            seq=np.concatenate([seq1, seq2])[order],
+            lens=np.full(2 * n, rl, np.int32),
+            qual=np.concatenate([q1, q2])[order])
+        fq = []
+        for mate, (sq, q) in ((1, (seq1, q1)), (2, (seq2, q2))):
+            fq.append(os.path.join(root, f"lib{li}_{mate}.fastq"))
+            with open(fq[-1], "wb") as fh:
+                fh.write(_fastq_bytes(nm, sq, q, mate))
+        libs.append(Library(bam=bam, insert_size=insert, std=std,
+                            left_fq=fq[0], right_fq=fq[1]))
+
+    cfg = Config(draft_genome=draft_path, libraries=tuple(libs),
+                 kmers=tuple(kmers), working_folder=os.path.join(root, "work"),
+                 min_gap_size=100, flank_length=300)
+    gaps = np.stack([gs // L, gs % L, ge - (gs // L) * L], axis=1)
+    return cfg, {"scaffolds": [truth[i * L:(i + 1) * L] for i in range(S)],
+                 "gaps": gaps, "open": [int(g) for g in open_gaps],
+                 "margin": cfg.flank_margin, "pairs": pairs}

@@ -8,6 +8,8 @@ they also run where only the port's dependencies are installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -256,6 +258,51 @@ def test_driver_on_card_matches_cpu(cuda, tmp_path, name):
     assert sorted(got[0]) == [0, 1, 2]
     for g, (seq, _) in got[0].items():
         np.testing.assert_array_equal(seq, fills[g])
+
+
+@pytest.mark.gpu
+def test_ingest_on_card_matches_cpu(cuda, tmp_path):
+    """Preprocess and Collect of a reduced `collect_scenario` (2
+    scaffolds of 60 kb, 8 gaps, one open; the paired-end library at 30x
+    and a 10 kb mate-pair library) on the card equal the CPU run: the
+    .npz arrays and the per-gap FASTQs; the sort kernel runs them."""
+    import os
+    from gappadder_tpu_torch.pipeline import collect, preprocess
+    from gappadder_tpu_torch.pipeline.workspace import Workspace
+    from gappadder_tpu_torch.testcases import collect_scenario
+    cfg, _truth = collect_scenario(
+        str(tmp_path / "scn"), 5, n_scaffolds=2, scaffold_len=60_000,
+        gaps_per_scaffold=4, libraries=((300, 50, 100, 30.0),
+                                        (10_000, 500, 100, 5.0)), n_open=1)
+    wss = []
+    for where in (cuda, "cpu"):
+        c = dataclasses.replace(cfg, working_folder=str(tmp_path / str(where)))
+        ws = Workspace(c.workdir)
+        sorts = psort.launches
+        preprocess.run_preprocess(c, ws, write_parity_files=True,
+                                  device=where)
+        collect.run_collect(c, ws, write_parity_files=True, device=where)
+        assert (psort.launches > sorts) == (where == cuda)
+        wss.append(ws)
+    gpu, cpu = wss
+    for name in ("gaps", "recruits", "both_unmapped"):
+        a, b = gpu.load_arrays(name), cpu.load_arrays(name)
+        assert sorted(a) == sorted(b)
+        for k in a:
+            assert a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
+            np.testing.assert_array_equal(a[k], b[k], err_msg=f"{name} {k}")
+    assert len(gpu.load_arrays("recruits")["gap"]) > 100
+    for sub in ("merged/gap_reads", "merged/gap_reads_high_quality",
+                "flank_regions", "."):
+        names = sorted(n for n in os.listdir(gpu.path(sub))
+                       if n.endswith((".fastq", ".fa", ".txt")))
+        assert names and names == sorted(
+            n for n in os.listdir(cpu.path(sub))
+            if n.endswith((".fastq", ".fa", ".txt")))
+        for n in names:
+            with open(os.path.join(gpu.path(sub), n), "rb") as a, \
+                    open(os.path.join(cpu.path(sub), n), "rb") as b:
+                assert a.read() == b.read(), (sub, n)
 
 
 def _same_and_counted(key, kernel, plain):

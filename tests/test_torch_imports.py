@@ -80,7 +80,9 @@ SLICE_MODULES = ["config", "utils.log", "io.fastq", "ops.swutil",
                  "probes.swprobe", "probes.int16_repro", "io.fasta",
                  "ops.evaluate_dp", "ops.merge_engine", "ops.seedmatch",
                  "parallel.mp", "pipeline.preprocess", "pipeline.rescue",
-                 "pipeline.workspace", "testcases"]
+                 "pipeline.workspace", "testcases", "io.native", "io.bam",
+                 "ops.minimap", "ops.gapscan", "pipeline.collect",
+                 "pipeline.patch"]
 
 
 @pytest.mark.parametrize("mod", SLICE_MODULES)
