@@ -38,7 +38,15 @@ to the CPU run file for file, every sort and SW call shape held to the
 plain version, the 60 closable gaps filled with the planted bases and
 filled_scaffolds.fa equal to the truth over them; the `collect_time`
 line gives each part's host-clock ms and the sort kernel at Collect's
-shapes.
+shapes. Last, the CLI (`cli.main`, in this process) on the same files:
+`-c All` writes the direct calls' workspace, a second `-c All` finds it
+up to date, `-c Evaluate` hits every closable gap with every SW call
+shape it made held to the plain version, `-c Assembly --trace` names
+the kernels in its trace, the non-fused Assembly batch writes the fused
+run's files with every SW and sort call shape held to the plain
+version, and the tools on the card equal the CPU; the `cli_time` line
+gives the CLI's per-stage seconds, Evaluate's parts and the non-fused
+k-mer merge's sort shapes.
 
 Prints JSON lines along the way; the line before the last is the
 `kernels` record and the last line is
@@ -56,6 +64,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -682,15 +691,28 @@ def main() -> int:
     emit(phase="driver", **drv.pop("check"), launches=launches["driver"])
     emit(phase="driver_time", **drv, smi=card)
 
-    # ---- phase 12: the ingest chain (Preprocess -> Collect -> driver ->
-    # Patch) on files ------------------------------------------------------
-    t = time.perf_counter()
-    chain = chain_phase(dev, reset_counts, read_counts)
-    launches["chain"] = chain["launches"]
-    emit(phase="chain", **chain["check"], launches=launches["chain"],
-         collect_launches=chain["collect_launches"])
-    emit(phase="collect_time", **chain["time"],
-         phase_s=time.perf_counter() - t, smi=card)
+    with tempfile.TemporaryDirectory() as root:
+        # ---- phase 12: the ingest chain (Preprocess -> Collect -> driver
+        # -> Patch) on files -----------------------------------------------
+        t = time.perf_counter()
+        chain = chain_phase(dev, reset_counts, read_counts, root)
+        launches["chain"] = chain["launches"]
+        emit(phase="chain", **chain["check"], launches=launches["chain"],
+             collect_launches=chain["collect_launches"])
+        emit(phase="collect_time", **chain["time"],
+             phase_s=time.perf_counter() - t, smi=card)
+
+        # ---- phase 13: the CLI on the card, on phase 12's files ----------
+        t = time.perf_counter()
+        clirun = cli_phase(root, chain, dev, reset_counts, read_counts)
+        launches["cli"] = clirun.pop("launches")
+        launches["evaluate"] = clirun.pop("evaluate_launches")
+        launches["nonfused"] = clirun.pop("nonfused_launches")
+        emit(phase="cli", **clirun.pop("check"), launches=launches["cli"],
+             evaluate_launches=launches["evaluate"],
+             nonfused_launches=launches["nonfused"])
+        emit(phase="cli_time", **clirun, phase_s=time.perf_counter() - t,
+             smi=card)
 
     probe_rows = [{
         "name": name, "route": "cuda",
@@ -731,11 +753,13 @@ def main() -> int:
         "launches_by_path": {p: v["sort"] for p, v in launches.items()},
         "seedmatch_rows": drv["seedmatch_sorts"],
         "collect_shapes": chain["time"]["collect_sorts"],
+        "nonfused_merge_shapes": clirun["nonfused_merge_sorts"],
         "check": "exact equality with bitonic_sort_plain in every plane, "
                  "on every call shape of the driver and chain paths too; "
                  "times are the sums over one production step's sort calls "
                  "(sort_time line), the seed matcher's rows in the "
                  "driver_time line, Collect's shapes in the collect_time "
+                 "line, the non-fused k-mer merge's in the cli_time "
                  "line"}, *probe_rows])
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -891,15 +915,6 @@ def plain_values(x):
     return x
 
 
-def same_files(ws_a, ws_b) -> bool:
-    for name in DRIVER_FILES:
-        with open(ws_a.path(name), "rb") as a, open(ws_b.path(name),
-                                                    "rb") as b:
-            if a.read() != b.read():
-                return False
-    return True
-
-
 def driver_phase(pargs, rowtab, dev, ops_s, reset_counts,
                  read_counts) -> dict:
     """Phase 11, the driver path. The toy workspaces on the card against
@@ -917,7 +932,7 @@ def driver_phase(pargs, rowtab, dev, ops_s, reset_counts,
                                          sw_cuda, swutil)
     from gappadder_tpu_torch.parallel import slice as sl
     from gappadder_tpu_torch.pipeline import fused, rescue, run
-    from gappadder_tpu_torch.testcases import driver_workspace
+    from gappadder_tpu_torch.testcases import driver_workspace, same_workspace
 
     check: dict = {"toy": {}}
     with tempfile.TemporaryDirectory() as tmp:
@@ -934,8 +949,8 @@ def driver_phase(pargs, rowtab, dev, ops_s, reset_counts,
                 outs.append((ws, run.run_assembly_and_pick(
                     cfg, ws, rec, rs, device=where)))
             (ws, got), (cws, want) = outs
-            if not same_files(ws, cws) or \
-                    plain_values(got) != plain_values(want):
+            same_workspace(ws.root, cws.root, DRIVER_FILES)
+            if plain_values(got) != plain_values(want):
                 raise AssertionError(f"toy driver {name}: card != CPU")
             if sorted(got[0]) != [0, 1, 2] or any(
                     not np.array_equal(got[0][g][0], fills[g]) for g in got[0]):
@@ -1035,31 +1050,6 @@ def driver_phase(pargs, rowtab, dev, ops_s, reset_counts,
             "seedmatch_sorts": seed_sorts}
 
 
-def same_arrays(a: dict, b: dict, what: str) -> None:
-    """Two .npz contents equal: names, dtypes, shapes and values."""
-    if sorted(a) != sorted(b):
-        raise AssertionError(f"{what}: arrays {sorted(a)} != {sorted(b)}")
-    for k in a:
-        if a[k].dtype != b[k].dtype or a[k].shape != b[k].shape or \
-                not np.array_equal(a[k], b[k]):
-            raise AssertionError(f"{what}: array {k} differs card vs CPU")
-
-
-def same_tree(root_a, root_b, sub: str) -> int:
-    """The files under `sub` of two workspaces equal byte for byte;
-    returns how many."""
-    da, db = os.path.join(root_a, sub), os.path.join(root_b, sub)
-    names = sorted(os.listdir(da))
-    if names != sorted(os.listdir(db)) or not names:
-        raise AssertionError(f"{sub}: files differ card vs CPU")
-    for nm in names:
-        with open(os.path.join(da, nm), "rb") as fa, \
-                open(os.path.join(db, nm), "rb") as fb:
-            if fa.read() != fb.read():
-                raise AssertionError(f"{sub}/{nm} differs card vs CPU")
-    return len(names)
-
-
 def install_collect_clock(clock, stack, ws, collect, preprocess, gapscan,
                           fastq, recruit, counts):
     """Time Collect's parts on the DriverClock `clock` (host ms between
@@ -1109,7 +1099,7 @@ def install_collect_clock(clock, stack, ws, collect, preprocess, gapscan,
     stack.enter_context(patched(collect, "_lowmapq_compact", low_counted))
 
 
-def chain_phase(dev, reset_counts, read_counts) -> dict:
+def chain_phase(dev, reset_counts, read_counts, tmp) -> dict:
     """Phase 12, the ingest chain: `testcases.collect_scenario` at its
     full size (4.6 Mbp draft, 64 gaps, 4 of them open; a paired-end
     library at 30x and a mate-pair one at 5x) written as files, then
@@ -1120,126 +1110,124 @@ def chain_phase(dev, reset_counts, read_counts) -> dict:
     held to the plain versions on their own inputs; every classification
     branch has work; the fills are the planted bases, the open gaps end
     as extensions or unfilled, and filled_scaffolds.fa is the truth over
-    every filled gap and N over every other. Returns {"check", "time",
-    "launches", "collect_sorts"}."""
-    import tempfile
+    every filled gap and N over every other. The scenario and both
+    workspaces stay under `tmp` (phase 13 runs the CLI on them). Returns
+    {"check", "time", "launches", "collect_launches", "cfg", "truth"}."""
     from gappadder_tpu_torch.io import fasta, fastq, native
     from gappadder_tpu_torch.ops import (gapscan, merge_engine, psort,
                                          recruit, seedmatch, swutil)
     from gappadder_tpu_torch.pipeline import (collect, fused, patch,
                                               preprocess, rescue, run)
     from gappadder_tpu_torch.pipeline.workspace import Workspace
-    from gappadder_tpu_torch.testcases import collect_scenario
+    from gappadder_tpu_torch.testcases import collect_scenario, same_workspace
 
-    with tempfile.TemporaryDirectory() as tmp:
+    t = time.perf_counter()
+    cfg, truth = collect_scenario(os.path.join(tmp, "scenario"), seed=0)
+    sim_ms = (time.perf_counter() - t) * 1e3
+    cfgs = {w: dataclasses.replace(cfg, working_folder=os.path.join(
+        tmp, w)) for w in ("card", "cpu")}
+    ws = Workspace(cfgs["card"].workdir)
+    clock, counts = DriverClock(), {}
+    reset_counts()
+    with contextlib.ExitStack() as stack:
+        install_collect_clock(clock, stack, ws, collect, preprocess,
+                              gapscan, fastq, recruit, counts)
+        collect_sorts = stack.enter_context(recording_sorts(psort))
+        torch.cuda.synchronize()
         t = time.perf_counter()
-        cfg, truth = collect_scenario(os.path.join(tmp, "scenario"), seed=0)
-        sim_ms = (time.perf_counter() - t) * 1e3
-        cfgs = {w: dataclasses.replace(cfg, working_folder=os.path.join(
-            tmp, w)) for w in ("card", "cpu")}
-        ws = Workspace(cfgs["card"].workdir)
-        clock, counts = DriverClock(), {}
-        reset_counts()
-        with contextlib.ExitStack() as stack:
-            install_collect_clock(clock, stack, ws, collect, preprocess,
-                                  gapscan, fastq, recruit, counts)
-            collect_sorts = stack.enter_context(recording_sorts(psort))
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            preprocess.run_preprocess(cfgs["card"], ws,
-                                      write_parity_files=True, device=dev)
-            collect.run_collect(cfgs["card"], ws, write_parity_files=True,
-                                device=dev)
-            torch.cuda.synchronize()
-            ingest_ms = (time.perf_counter() - t) * 1e3
-        collect_launches = read_counts()
-        ingest = dict(clock.ms)
+        preprocess.run_preprocess(cfgs["card"], ws,
+                                  write_parity_files=True, device=dev)
+        collect.run_collect(cfgs["card"], ws, write_parity_files=True,
+                            device=dev)
+        torch.cuda.synchronize()
+        ingest_ms = (time.perf_counter() - t) * 1e3
+    collect_launches = read_counts()
+    ingest = dict(clock.ms)
 
-        # the driver and Patch on the card, from the workspace's files
-        dclock = DriverClock()
-        with contextlib.ExitStack() as stack:
-            dclock.install(stack, run, fused, rescue, seedmatch, merge_engine,
-                           swutil, psort)
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            fills, exts, _store = run.run_assembly_and_pick(
-                cfgs["card"], ws, device=dev)
-            torch.cuda.synchronize()
-            driver_ms = (time.perf_counter() - t) * 1e3
+    # the driver and Patch on the card, from the workspace's files
+    dclock = DriverClock()
+    with contextlib.ExitStack() as stack:
+        dclock.install(stack, run, fused, rescue, seedmatch, merge_engine,
+                       swutil, psort)
+        torch.cuda.synchronize()
         t = time.perf_counter()
-        n_patched = patch.run_patch(cfgs["card"], ws)
-        patch_ms = (time.perf_counter() - t) * 1e3
-        launches = read_counts()
-        if min(launches["sw"], launches["sort"]) < 1 or \
-                collect_launches["sort"] < 1:
-            raise AssertionError(f"the chain launched {launches}, Collect "
-                                 f"{collect_launches}")
+        fills, exts, _store = run.run_assembly_and_pick(
+            cfgs["card"], ws, device=dev)
+        torch.cuda.synchronize()
+        driver_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    n_patched = patch.run_patch(cfgs["card"], ws)
+    patch_ms = (time.perf_counter() - t) * 1e3
+    launches = read_counts()
+    if min(launches["sw"], launches["sort"]) < 1 or \
+            collect_launches["sort"] < 1:
+        raise AssertionError(f"the chain launched {launches}, Collect "
+                             f"{collect_launches}")
 
-        # Preprocess and Collect: the card == the port's CPU run
-        cws = Workspace(cfgs["cpu"].workdir)
-        t = time.perf_counter()
-        preprocess.run_preprocess(cfgs["cpu"], cws, write_parity_files=True,
-                                  device="cpu")
-        collect.run_collect(cfgs["cpu"], cws, write_parity_files=True,
-                            device="cpu")
-        cpu_ingest_ms = (time.perf_counter() - t) * 1e3
-        for name in ("gaps", "recruits", "both_unmapped"):
-            same_arrays(ws.load_arrays(name), cws.load_arrays(name), name)
-        for w in (ws, cws):
-            fasta.write_fai(cfg.draft_genome, w.path("draft.fa.fai"))
-        files = {sub: same_tree(ws.root, cws.root, sub)
-                 for sub in ("flank_regions", "merged/gap_reads",
-                             "merged/gap_reads_high_quality")}
-        for name in ("gap_positions.txt", "draft.fa.fai"):
-            with open(ws.path(name), "rb") as a, open(cws.path(name),
-                                                      "rb") as b:
-                if a.read() != b.read():
-                    raise AssertionError(f"{name} differs card vs CPU")
-            files[name] = 1
-        bu = len(ws.load_arrays("both_unmapped")["row"])
-        n_rec = len(ws.load_arrays("recruits")["gap"])
+    # Preprocess and Collect: the card == the port's CPU run
+    cws = Workspace(cfgs["cpu"].workdir)
+    t = time.perf_counter()
+    preprocess.run_preprocess(cfgs["cpu"], cws, write_parity_files=True,
+                              device="cpu")
+    collect.run_collect(cfgs["cpu"], cws, write_parity_files=True,
+                        device="cpu")
+    cpu_ingest_ms = (time.perf_counter() - t) * 1e3
+    files = same_workspace(ws.root, cws.root, (
+        "gaps.npz", "recruits.npz", "both_unmapped.npz", "gap_positions.txt",
+        "flank_regions", os.path.join("merged", "gap_reads"),
+        os.path.join("merged", "gap_reads_high_quality")))
+    # the draft's .fai beside (not in) the workspaces, which phase 13
+    # compares file for file with the CLI's
+    fais = [os.path.join(tmp, f"draft_{w}.fa.fai") for w in ("card", "cpu")]
+    for f in fais:
+        fasta.write_fai(cfg.draft_genome, f)
+    with open(fais[0], "rb") as a, open(fais[1], "rb") as b:
+        if a.read() != b.read():
+            raise AssertionError("draft.fa.fai differs card vs CPU")
+    bu = len(ws.load_arrays("both_unmapped")["row"])
+    n_rec = len(ws.load_arrays("recruits")["gap"])
 
-        # every branch has work
-        branches = {k: counts.get(k, 0) for k in ("clip", "disc", "unmap",
-                                                  "pass2_entries")}
-        branches["both_unmapped_rows"] = bu
-        if min(branches.values()) < 1:
-            raise AssertionError(f"a classification branch is empty: "
-                                 f"{branches}")
+    # every branch has work
+    branches = {k: counts.get(k, 0) for k in ("clip", "disc", "unmap",
+                                              "pass2_entries")}
+    branches["both_unmapped_rows"] = bu
+    if min(branches.values()) < 1:
+        raise AssertionError(f"a classification branch is empty: "
+                             f"{branches}")
 
-        # fills, extensions and the patched scaffolds against the truth
-        gaps, margin = truth["gaps"], truth["margin"]
-        planted = [truth["scaffolds"][s][a - margin:b + margin]
-                   for s, a, b in gaps]
-        wrong = [g for g in fills if not np.array_equal(fills[g][0],
-                                                        planted[g])]
-        opened = [g for g in truth["open"] if g in fills]
-        if wrong or opened:
-            raise AssertionError(f"chain: gaps {wrong} filled with other "
-                                 f"than the planted bases, open gaps "
-                                 f"{opened} filled")
-        closed = [g for g in range(len(gaps)) if g not in truth["open"]]
-        short = [g for g in closed if g not in fills]
-        for stage in ("hq", "final_pick"):
-            if stage not in dclock.ms:
-                raise AssertionError(f"the chain did not run {stage}")
-        if n_patched != len(fills):
-            raise AssertionError(f"Patch filled {n_patched} gaps, the "
-                                 f"driver {len(fills)}")
-        out = fasta.read_fasta(ws.path("filled_scaffolds.fa"))
-        for si, seq in enumerate(truth["scaffolds"]):
-            want = seq.copy()
-            for g in np.flatnonzero(gaps[:, 0] == si):
-                if g not in fills:
-                    want[gaps[g, 1]:gaps[g, 2]] = 4          # N
-            if not np.array_equal(out.scaffold(si), want):
-                raise AssertionError(f"filled_scaffolds.fa: scaffold {si} "
-                                     "is not the truth over its fills")
-        per_gap = ws.load_arrays("recruits")["gap"]
-        shortfall = {str(g): {"gap_len": int(gaps[g, 2] - gaps[g, 1]),
-                              "recruits": int((per_gap == g).sum()),
-                              "rescued": dclock.rescued.get(g, 0),
-                              "extended": g in exts} for g in short}
+    # fills, extensions and the patched scaffolds against the truth
+    gaps, margin = truth["gaps"], truth["margin"]
+    planted = [truth["scaffolds"][s][a - margin:b + margin]
+               for s, a, b in gaps]
+    wrong = [g for g in fills if not np.array_equal(fills[g][0],
+                                                    planted[g])]
+    opened = [g for g in truth["open"] if g in fills]
+    if wrong or opened:
+        raise AssertionError(f"chain: gaps {wrong} filled with other "
+                             f"than the planted bases, open gaps "
+                             f"{opened} filled")
+    closed = [g for g in range(len(gaps)) if g not in truth["open"]]
+    short = [g for g in closed if g not in fills]
+    for stage in ("hq", "final_pick"):
+        if stage not in dclock.ms:
+            raise AssertionError(f"the chain did not run {stage}")
+    if n_patched != len(fills):
+        raise AssertionError(f"Patch filled {n_patched} gaps, the "
+                             f"driver {len(fills)}")
+    out = fasta.read_fasta(ws.path("filled_scaffolds.fa"))
+    for si, seq in enumerate(truth["scaffolds"]):
+        want = seq.copy()
+        for g in np.flatnonzero(gaps[:, 0] == si):
+            if g not in fills:
+                want[gaps[g, 1]:gaps[g, 2]] = 4          # N
+        if not np.array_equal(out.scaffold(si), want):
+            raise AssertionError(f"filled_scaffolds.fa: scaffold {si} "
+                                 "is not the truth over its fills")
+    per_gap = ws.load_arrays("recruits")["gap"]
+    shortfall = {str(g): {"gap_len": int(gaps[g, 2] - gaps[g, 1]),
+                          "recruits": int((per_gap == g).sum()),
+                          "rescued": dclock.rescued.get(g, 0),
+                          "extended": g in exts} for g in short}
     sw_keys, held_sw, held_sort = hold_driver_calls(dclock, dev)
     held_collect = []
     for (shape, nk, npay), (n, ops) in sorted(collect_sorts.items()):
@@ -1253,7 +1241,7 @@ def chain_phase(dev, reset_counts, read_counts) -> dict:
         "records": counts.get("records", 0), "recruits": n_rec,
         "native_io": native.source(),
         "card_equal_cpu": {"npz": ["gaps", "recruits", "both_unmapped"],
-                           "files": files},
+                           "files": len(files)},
         "branches": branches,
         "filled": len(fills), "filled_planted": len(fills),
         "closable": len(closed), "unfilled_closable": short,
@@ -1282,7 +1270,270 @@ def chain_phase(dev, reset_counts, read_counts) -> dict:
         "driver_counts": dclock.counts,
         "patch_ms": patch_ms, "collect_sorts": sort_rows}
     return {"check": check, "time": timing, "launches": launches,
-            "collect_launches": collect_launches}
+            "collect_launches": collect_launches, "cfg": cfgs["card"],
+            "truth": truth}
+
+
+def trace_mentions(path, words, chunk=1 << 24) -> dict:
+    """How often each word occurs in a (Chrome trace) file, read in
+    chunks: the trace of a whole driver run is too large to parse."""
+    hits = {w: 0 for w in words}
+    keep = max(len(w) for w in words) - 1
+    tail = b""
+    with open(path, "rb") as fh:
+        while True:
+            block = fh.read(chunk)
+            if not block:
+                break
+            buf = tail + block
+            for w in words:
+                # count matches that end inside the new block only
+                hits[w] += buf.count(w.encode()) - tail.count(w.encode())
+            tail = buf[-keep:]
+    return hits
+
+
+def cli_phase(root, chain, dev, reset_counts, read_counts) -> dict:
+    """Phase 13, the CLI on the card, on phase 12's scenario files.
+    Phase 12's workspace moves aside and the CLI (`cli.main`, in this
+    process) takes its path, so the config and its hash are the same:
+    (a) `-c All --parity-files` writes the same workspace, file for file
+    (the .npz files array by array, the manifest but for its times,
+    metrics.json left out), with the kernel counts reset before and read
+    after; (b) `-c All` again finds every stage up to date; (c) `-c
+    Evaluate --finished` on the planted genome, counts reset before and
+    read after, under the recording hooks, hits every closable gap, and
+    every SW call shape it made equals the plain version; then
+    Evaluate's full-DP fallback places a lone flank on a scaffold of
+    2^20 bases where the planted bases are (its plain version, one
+    tensor step an anti-diagonal, would take 2^20 of them); (d) `-c Assembly --force --trace` names the SW and sort
+    kernels in its trace and writes the same files; (e) the driver with
+    tpu.fused=False, counts reset before and read after, under phase
+    11's recording hooks: every SW and sort call shape equals the plain
+    version, its picked_seqs.fa, _ori.txt and merge_info.txt equal the
+    fused run's, and the k-mer merge's sort shapes are timed; (f)
+    `refiner.classify_repeat` and `scaffold.build_scaffolds` on round 1's
+    contigs of four gaps, on the card, equal the CPU run. Returns the
+    cli_time record with "check", "launches", "evaluate_launches" and
+    "nonfused_launches" in it."""
+    import io
+    import shutil
+    from gappadder_tpu_torch import cli, dna
+    from gappadder_tpu_torch.io import fasta
+    from gappadder_tpu_torch.ops import (merge_engine, minimap, psort,
+                                         seedmatch, sw_cuda, swutil)
+    from gappadder_tpu_torch.pipeline import (assemble, fused, rescue,
+                                              run)
+    from gappadder_tpu_torch.pipeline.preprocess import gap_ids
+    from gappadder_tpu_torch.pipeline.workspace import Workspace
+    from gappadder_tpu_torch.testcases import config_dict, same_workspace
+    from gappadder_tpu_torch.tools import evaluate, refiner, scaffold
+    from gappadder_tpu_torch.utils import meters
+
+    cfg, truth = chain["cfg"], chain["truth"]
+    work = cfg.workdir.rstrip("/")
+    direct = os.path.join(root, "chain_direct")
+    shutil.move(work, direct)
+    cfg_path = os.path.join(root, "config.json")
+    with open(cfg_path, "w") as fh:
+        json.dump(config_dict(cfg), fh)
+    metrics = os.path.join(work, "metrics.json")
+
+    def cli_run(*argv):
+        """cli.main on the config; returns (printed lines, wall s,
+        metrics.json's stages of this run)."""
+        meters.GLOBAL.stages.clear()
+        out = io.StringIO()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["-g", cfg_path, *argv])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        if rc != 0:
+            raise AssertionError(f"cli {argv} exited {rc}")
+        with open(metrics) as fh:
+            stages = json.load(fh)["stages"]
+        return out.getvalue().splitlines(), wall, stages
+
+    # (a) -c All: the same workspace as phase 12's direct calls
+    reset_counts()
+    printed_all, all_s, all_stages = cli_run("-c", "All", "--parity-files")
+    launches = read_counts()
+    if min(launches["sw"], launches["sort"]) < 1:
+        raise AssertionError(f"the CLI launched {launches}")
+    files = same_workspace(direct, work)
+
+    # (b) -c All again: every stage up to date
+    printed_again, again_s, _ = cli_run("-c", "All")
+    if sum("up-to-date" in ln for ln in printed_again) != 3:
+        raise AssertionError(f"-c All again printed {printed_again}")
+
+    # (c) -c Evaluate on the planted genome
+    truth_fa = os.path.join(root, "truth.fa")
+    fasta.write_fasta(truth_fa, [(f"scaffold_{i}", s)
+                                 for i, s in enumerate(truth["scaffolds"])])
+    ev_clock = DriverClock()
+    reset_counts()
+    with contextlib.ExitStack() as stack:
+        ev_clock.install(stack, run, fused, rescue, seedmatch, merge_engine,
+                         swutil, psort)
+        for module, name, lab in (
+                (minimap, "build_index", "minimizer_index"),
+                (minimap, "map_reads", "map_flanks"),
+                (swutil, "sw_pairs", "sw"),
+                (swutil, "sw_small", "sw"),
+                (evaluate, "alignment_stats", "host_traceback")):
+            stack.enter_context(patched(module, name, ev_clock.timed(
+                lab, getattr(module, name))))
+        printed_ev, ev_s, ev_stages = cli_run("-c", "Evaluate",
+                                              "--finished", truth_fa)
+    ev_launches = read_counts()
+    if ev_launches["sw"] < 1:
+        raise AssertionError(f"Evaluate launched {ev_launches}")
+    _, ev_held_sw, ev_held_sort = hold_driver_calls(ev_clock, dev)
+    ws = Workspace(work)
+    ids = gap_ids(ws.load_arrays("gaps"))
+    want = [ids[g] for g in range(len(ids)) if g not in truth["open"]]
+    with open(ws.path("hit_list.txt")) as fh:
+        hits = fh.read().split()
+    if hits != want:
+        raise AssertionError(f"Evaluate hit {len(hits)} gaps, not the "
+                             f"{len(want)} closable ones")
+    with open(ws.path("closed_gap_length.txt")) as fh:
+        closed_sum = sum(int(x) for x in fh.read().split())
+    # the full-DP fallback's largest case: one flank against a scaffold
+    # of 2^20 bases, both strands, one pair a kernel call
+    big = np.concatenate(truth["scaffolds"][:2])[:1 << 20]
+    genome = fasta.Genome(seq=big, offsets=np.array([0]),
+                          lengths=np.array([len(big)]), names=["big"])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    place = evaluate._best_placement(big[3000:3300], genome, device=dev)
+    torch.cuda.synchronize()
+    fallback_ms = (time.perf_counter() - t) * 1e3
+    if place != (0, 0, 3000, 3300, 0, 300, 300):
+        raise AssertionError(f"fallback placement {place}")
+
+    # (d) -c Assembly --force --trace
+    trace_dir = os.path.join(root, "trace")
+    _, trace_s, trace_stages = cli_run("-c", "Assembly", "--force",
+                                       "--trace", trace_dir)
+    trace_path = os.path.join(trace_dir, meters.TRACE_FILE)
+    traced = trace_mentions(trace_path, ("sw_kernel", "psort_tiles",
+                                         "psort_merge"))
+    if not traced["sw_kernel"] or not (traced["psort_tiles"]
+                                       or traced["psort_merge"]):
+        raise AssertionError(f"the trace names {traced}")
+    same_workspace(direct, work, DRIVER_FILES)
+
+    # (e) the non-fused batch under the recording hooks
+    nf_dir = os.path.join(root, "nonfused")
+    shutil.copytree(work, nf_dir)
+    nf_cfg = dataclasses.replace(
+        cfg, working_folder=nf_dir,
+        tpu=dataclasses.replace(cfg.tpu, fused=False))
+    clock = DriverClock()
+    reset_counts()
+    with contextlib.ExitStack() as stack:
+        clock.install(stack, run, fused, rescue, seedmatch, merge_engine,
+                      swutil, psort)
+        for name, lab in (("assemble_gap_batch", "assembly"),
+                          ("_merge_chunk_impl", "kmer_merge")):
+            stack.enter_context(patched(assemble, name, clock.timed(
+                lambda a, kw, lab=lab: f"round{clock.round}_{lab}",
+                getattr(assemble, name))))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fills, _exts, store = run.run_assembly_and_pick(
+            nf_cfg, Workspace(nf_dir), device=dev)
+        torch.cuda.synchronize()
+        nf_ms = (time.perf_counter() - t) * 1e3
+    nf_launches = read_counts()
+    if min(nf_launches["sw"], nf_launches["sort"]) < 1:
+        raise AssertionError(f"the non-fused driver launched {nf_launches}")
+    same_workspace(nf_dir, work, DRIVER_FILES)
+    merge_calls = {key: [n, ops] for key, (n, labs, ops)
+                   in clock.sorts.items()
+                   if any(x.endswith("kmer_merge") for x in labs)}
+    if not merge_calls:
+        raise AssertionError("the non-fused k-mer merge made no sort call")
+    _sw_keys, held_sw, held_sort = hold_driver_calls(clock, dev)
+    merge_rows = sort_shape_times(psort, merge_calls)
+    del merge_calls, _sw_keys
+
+    # (f) the tools on round 1's contigs of four gaps, card == CPU
+    gl = clock.closed_by.get("round1_pick", [])[:4]
+    if len(gl) < 4:
+        raise AssertionError(f"round 1 closed {gl}")
+    cs = []
+    for g in gl:
+        s, ln, _n, nm = store[g]
+        i = nm.index(fills[g][1])
+        cs.append(np.asarray(s[i][:int(ln[i])]))
+    a, b = int(len(cs[2]) * 0.6), int(len(cs[2]) * 0.4)
+    parts = [cs[0], cs[1], cs[2][:a], cs[2][b:]]
+    pnames = ["g0", "g1", "g2a", "g2b"]
+
+    def link(i, j, d2, dist):
+        return (i, pnames[i], len(parts[i]), "+", j, pnames[j],
+                len(parts[j]), d2, 9, float(dist), float(dist), float(dist))
+    links = [link(0, 1, "+", 80), link(2, 3, "+", b - a),
+             link(1, 2, "-", -40), link(3, 0, "+", 20)]
+    pairs = [(cs[0], cs[0]), (cs[0], dna.revcomp(cs[0])), (cs[0], cs[1]),
+             (cs[3][:200], cs[3])]
+    sws = sw_cuda.launches
+    tools = {}
+    for where in (dev, "cpu"):
+        tools[str(where)] = plain_values([
+            [refiner.classify_repeat(x, y, device=where) for x, y in pairs],
+            scaffold.build_scaffolds(parts, pnames, links, chain=True,
+                                     device=where)])
+    tool_launches = sw_cuda.launches - sws
+    card_tools, cpu_tools = tools[str(dev)], tools["cpu"]
+    if card_tools != cpu_tools:
+        raise AssertionError("tools: the card's results != the CPU's")
+    if tool_launches < len(pairs) + 1:
+        raise AssertionError(f"tools: {tool_launches} kernel launches")
+    recs = card_tools[1][0]
+    if [r[0] for r in card_tools[0][:2]] != ["forward", "reverse"] or \
+            not any(r[1] == plain_values(cs[2]) for r in recs):
+        raise AssertionError("tools: repeat classes or the overlap merge "
+                             f"are wrong: {[r[0] for r in recs]}")
+
+    check = {
+        "all": {"printed": printed_all, "equal_direct_workspace": True,
+                "files": len(files)},
+        "again_up_to_date": 3,
+        "evaluate": {"printed": printed_ev, "hits": len(hits),
+                     "closable": len(want), "closed_length_sum": closed_sum,
+                     "sw_shapes_equal_plain": ev_held_sw,
+                     "sort_shapes_equal_plain": ev_held_sort,
+                     "fallback_placement_2pow20": list(place)},
+        "trace": {"kernels": traced,
+                  "mb": os.path.getsize(trace_path) / 2 ** 20},
+        "nonfused": {"filled": len(fills), "equal_fused_files": True,
+                     "sw_shapes_equal_plain": held_sw,
+                     "sort_shapes_equal_plain": held_sort},
+        "tools": {"gaps": [int(g) for g in gl], "equal_cpu": True,
+                  "classes": [r[0] for r in card_tools[0]],
+                  "scaffold_records": [r[0] for r in recs],
+                  "sw_launches": tool_launches}}
+    return {"check": check, "launches": launches,
+            "evaluate_launches": ev_launches,
+            "nonfused_launches": nf_launches,
+            "all_s": all_s, "stage_s": {k: v["seconds"]
+                                        for k, v in all_stages.items()},
+            "again_s": again_s, "evaluate_ms": ev_stages["evaluate"]
+            ["seconds"] * 1e3, "evaluate_cli_s": ev_s,
+            "evaluate_parts_ms": ev_clock.ms,
+            "fallback_2pow20_ms": fallback_ms,
+            "traced_assembly_s": trace_stages["assembly"]["seconds"],
+            "fused_driver_ms": {
+                "cli_assembly": all_stages["assembly"]["seconds"] * 1e3,
+                "phase12_hooked": chain["time"]["driver_ms"]},
+            "nonfused_driver_ms": nf_ms, "nonfused_stage_ms": clock.ms,
+            "nonfused_merge_sorts": merge_rows}
 
 
 def hold_driver_calls(clock, dev):

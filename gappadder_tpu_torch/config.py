@@ -4,11 +4,10 @@ it (counterpart of gappadder_tpu/config.py).
 The same JSON file loads into the same frozen dataclasses, field for
 field, so a configuration written for the JAX package drives the port.
 The `tpu` section is accepted unchanged. Of it only `gap_batch` (gaps
-per Assembly batch) keeps its meaning, and `fused=False` (the JAX
-package's non-fused batch, not ported) makes the Assembly driver raise.
-On one GPU `use_pallas`, `mesh_shape` and `mesh_axes` mean nothing: the
-port runs the fused device batch and its hand-written kernels on the
-card it is given, with no mesh.
+per Assembly batch) and `fused` (False: the non-fused Assembly batch,
+the JAX package's host-glued path) keep their meaning. On one GPU
+`use_pallas`, `mesh_shape` and `mesh_axes` mean nothing: the port runs
+its hand-written kernels on the card it is given, with no mesh.
 """
 
 from __future__ import annotations
@@ -39,9 +38,8 @@ class Library:
 @dataclasses.dataclass(frozen=True)
 class TpuParams:
     """The JAX package's device knobs (no reference equivalent), kept so
-    the same JSON loads. Only `gap_batch` means anything to the port,
-    and `fused=False` is refused by the Assembly driver; the other
-    fields are accepted and ignored on one GPU."""
+    the same JSON loads. Only `gap_batch` and `fused` mean anything to
+    the port; the other fields are accepted and ignored on one GPU."""
     mesh_shape: tuple[int, ...] = (1,)
     mesh_axes: tuple[str, ...] = ("dp",)
     max_gaps: int = 1 << 16          # static bound for jitted gap scan

@@ -1,12 +1,14 @@
 """Shape-bucketed dispatch for the SW kernel (counterpart of
 gappadder_tpu/ops/swutil.py).
 
-Every ragged alignment batch (pick, and later merge and rescue) goes
+Every alignment batch (pick, merge, rescue, Evaluate, the tools) goes
 through here: batch size and sequence lengths are padded up to the
-same power-of-two buckets as in the JAX package, and the batch runs
-through `sw_cuda.sw_batch_cuda` on `device` — the hand-written kernel
-on the card, its plain version only when the caller asks for the CPU.
-Results come back as numpy, as the JAX functions return them.
+same power-of-two buckets as in the JAX package (`sw_pairs`,
+`sw_ragged`), or, for a few pairs against long targets, only to the
+pairs' own lengths (`sw_small`), and the batch runs through
+`sw_cuda.sw_batch_cuda` on `device` — the hand-written kernel on the
+card, its plain version only when the caller asks for the CPU. Results
+come back as numpy, as the JAX functions return them.
 """
 
 from __future__ import annotations
@@ -51,6 +53,29 @@ def sw_pairs(queries, qlens, targets, tlens, params: SWParams,
         s, qe, te = sw_batch_cuda(*args, params, mode, end_slack)
         out = torch.stack([s, qe, te]).cpu().numpy()
     return out[0, :B], out[1, :B], out[2, :B]
+
+
+def sw_small(queries, targets, params: SWParams, mode: str,
+             end_slack: int = 0, device="cuda"):
+    """A few pairs (lists of code arrays) in one kernel call, padded only
+    to the longest query and target (at least 8 codes, as the JAX
+    package pads its lone pairs), not to sw_pairs' buckets: a lone query
+    against a whole scaffold would otherwise pay for 64 pairs of strip
+    scratch. Returns numpy int32 (score, qend, tend)."""
+    device = entry_device(device, "sw_small")
+    B = len(queries)
+    qa = np.full((B, max(max(len(q) for q in queries), 8)), dna.N, np.int8)
+    ta = np.full((B, max(max(len(t) for t in targets), 8)), dna.N, np.int8)
+    for i, (q, t) in enumerate(zip(queries, targets)):
+        qa[i, :len(q)] = q
+        ta[i, :len(t)] = t
+    ql = np.array([len(q) for q in queries], np.int32)
+    tl = np.array([len(t) for t in targets], np.int32)
+    args = [torch.from_numpy(x).to(device) for x in (qa, ql, ta, tl)]
+    with torch.no_grad():
+        out = torch.stack(sw_batch_cuda(*args, params, mode, end_slack))
+    out = out.cpu().numpy()
+    return out[0], out[1], out[2]
 
 
 def sw_ragged(queries, targets, params: SWParams, mode: str,

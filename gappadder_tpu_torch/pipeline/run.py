@@ -1,8 +1,9 @@
 """Assembly+Pick driver: the full two-round pipeline with rescue
 (counterpart of gappadder_tpu/pipeline/run.py), on one device.
 
-  round 1: per-gap multi-k DBG assembly (the fused device batch) ->
-           dedup/merge -> full pick (bwa-score threshold 30);
+  round 1: per-gap multi-k DBG assembly (the fused device batch, or
+           the non-fused one with tpu.fused=False) -> dedup/merge ->
+           full pick (bwa-score threshold 30);
   rescue:  both-ends-unmapped pairs matched against open gaps' contigs
            join those gaps' read sets (pipeline/rescue.py);
   round 2: re-assemble rescued gaps -> merge -> pick(30);
@@ -102,6 +103,26 @@ def build_gap_read_arrays(rec, readsets, n_gaps: int):
     return per_gap
 
 
+def _pad_batch(gap_indices, per_gap, readsets, R, L):
+    """[G, R, L] read codes, [G, R] lengths and [G] read counts of a
+    gap batch for the non-fused Assembly batch; -1 slots stay empty."""
+    G = len(gap_indices)
+    seq = np.full((G, R, L), dna.N, np.int8)
+    rlen = np.zeros((G, R), np.int32)
+    nreads = np.zeros(G, np.int32)
+    for i, g in enumerate(gap_indices):
+        if g < 0:
+            continue  # padding slot
+        rows = per_gap[g][:R]
+        nreads[i] = len(rows)
+        for j, (li, side, row) in enumerate(rows):
+            rs = readsets[li][side]
+            ln = min(int(rs.length[row]), L)
+            seq[i, j, :ln] = rs.get_seq(row)[:ln]
+            rlen[i, j] = ln
+    return seq, rlen, nreads
+
+
 def _tuple_from_list(clist, cnames):
     """(seq 2-D, lens, count, names) from a ragged contig list."""
     n = len(clist)
@@ -160,12 +181,9 @@ def _bucket_of(n: int):
 def _assemble_gaps(cfg, gap_list, per_gap, readsets, L, contig_store, mcfg,
                    minfo=None, device="cuda"):
     """Assemble + refine contigs for the given gaps (bucketed by read
-    count), through the fused device batch (`fused.assemble_batch`)."""
-    if not cfg.tpu.fused:
-        raise NotImplementedError(
-            "tpu.fused=False needs the non-fused Assembly batch "
-            "(assemble.assemble_gap_batch), not ported yet: ROADMAP "
-            "Queue 1, the non-fused batch")
+    count), through the fused device batch (`fused.assemble_batch`), or
+    with `tpu.fused=False` the non-fused one (`_pad_batch` +
+    `assemble.assemble_gap_batch`)."""
     buckets: dict[int, list[int]] = {}
     md_of = dict(_BUCKETS)
     cap = cfg.max_reads_per_gap
@@ -192,9 +210,16 @@ def _assemble_gaps(cfg, gap_list, per_gap, readsets, L, contig_store, mcfg,
             batch = gl[lo:lo + gb]
             padded = batch + [-1] * (gb - len(batch))  # fixed G shape
             Rcap = min(R, cap) if cap else R
-            contigs = fused.assemble_batch(
-                cfg, padded, per_gap, readsets, Rcap, L,
-                max_distinct=md_of[R], device=device)
+            if cfg.tpu.fused:
+                contigs = fused.assemble_batch(
+                    cfg, padded, per_gap, readsets, Rcap, L,
+                    max_distinct=md_of[R], device=device)
+            else:
+                seq, rlen, nreads = _pad_batch(padded, per_gap, readsets,
+                                               Rcap, L)
+                contigs = assemble.assemble_gap_batch(
+                    cfg, seq, rlen, nreads, max_distinct=md_of[R],
+                    device=device)
             for i, g in enumerate(batch):
                 raw_order.append(g)
                 raw_store[g] = ([np.asarray(contigs.seq[i][j]

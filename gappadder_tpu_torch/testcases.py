@@ -1,9 +1,9 @@
 """Inputs for holding the hand-written kernels against their plain
 versions (SW query/target pairs, the sort's cases, the probe kernels'
 inputs) and scenarios written as files for the pipeline's stages (the
-Assembly driver's workspace, Collect's draft, BAM and FASTQs). Used by
-the tests and by chip_smoke.py; no pipeline path imports this
-module."""
+Assembly driver's workspace, Collect's draft, BAM and FASTQs, the CLI's
+JSON config) and the comparison of two workspaces. Used by the tests
+and by chip_smoke.py; no pipeline path imports this module."""
 
 from __future__ import annotations
 
@@ -447,3 +447,84 @@ def collect_scenario(root, seed: int = 0, *, n_scaffolds: int = 8,
     return cfg, {"scaffolds": [truth[i * L:(i + 1) * L] for i in range(S)],
                  "gaps": gaps, "open": [int(g) for g in open_gaps],
                  "margin": cfg.flank_margin, "pairs": pairs}
+
+
+def config_dict(cfg) -> dict:
+    """A Config as the reference-schema JSON the CLI loads, with every
+    field `config.config_from_dict` reads (paths as given, so absolute
+    paths load unchanged). Settings that share a k must be adjacent in
+    `cfg.kmers`, as the schema groups sub-ks under their k."""
+    import dataclasses
+    kmers: list = []
+    for k, sub in cfg.kmers:
+        if not kmers or kmers[-1]["k"] != k:
+            kmers.append({"k": k, "k_velvet": []})
+        kmers[-1]["k_velvet"].append({"k": sub})
+    params = {f: getattr(cfg, f) for f in (
+        "min_gap_size", "flank_length", "nthreads", "anchor_mapq",
+        "clip_dist", "flank_margin", "long_insert_threshold",
+        "high_quality_mapq", "min_contig_len", "min_kmer_count",
+        "bubble_pop_rounds", "max_reads_per_gap", "max_distinct_kmers",
+        "max_contig_len", "max_unitigs", "pick_max_hits")}
+    params.update(verbose=int(cfg.verbose),
+                  working_folder=cfg.working_folder)
+    return {
+        "draft_genome": {"fa": cfg.draft_genome},
+        "alignments": [{"bam": lib.bam, "is": lib.insert_size,
+                        "std": lib.std} for lib in cfg.libraries],
+        "raw_reads": [{"left": lib.left_fq, "right": lib.right_fq}
+                      for lib in cfg.libraries],
+        "kmer_length": kmers, "parameters": params,
+        "tpu": {k: list(v) if isinstance(v, tuple) else v
+                for k, v in dataclasses.asdict(cfg.tpu).items()}}
+
+
+def same_workspace(root_a, root_b, only=None) -> list[str]:
+    """Two workspaces hold the same files with the same contents: the
+    .npz files array by array (names, dtypes, shapes, values), the
+    manifest without its stages' times, every other file byte for byte;
+    metrics.json (the CLI's timings) is left out, present or not. With
+    `only` (relative file or folder names), just the files those name
+    are compared, and each must name at least one. Raises AssertionError naming
+    the first difference; returns the relative file names compared."""
+    import json
+    import os
+
+    def wanted(n):
+        return n != "metrics.json" and (only is None or any(
+            n == p or n.startswith(p + os.sep) for p in only))
+
+    def names(root):
+        return sorted(n for n in (os.path.relpath(os.path.join(d, f), root)
+                                  for d, _, fs in os.walk(root) for f in fs)
+                      if wanted(n))
+    files = names(root_a)
+    missing = [p for p in only or () if not any(
+        n == p or n.startswith(p + os.sep) for n in files)]
+    if missing:
+        raise AssertionError(f"workspace {root_a} holds no {missing}")
+    if files != names(root_b):
+        raise AssertionError(f"workspace files differ: "
+                             f"{sorted(set(files) ^ set(names(root_b)))}")
+    for nm in files:
+        pa, pb = os.path.join(root_a, nm), os.path.join(root_b, nm)
+        if nm.endswith(".npz"):
+            with np.load(pa) as za, np.load(pb) as zb:
+                if sorted(za.files) != sorted(zb.files) or any(
+                        za[k].dtype != zb[k].dtype
+                        or za[k].shape != zb[k].shape
+                        or not np.array_equal(za[k], zb[k])
+                        for k in za.files):
+                    raise AssertionError(f"{nm}: arrays differ")
+            continue
+        if nm == "manifest.json":
+            ma, mb = ({name: {k: v for k, v in st.items() if k != "time"}
+                       for name, st in json.load(open(p))["stages"].items()}
+                      for p in (pa, pb))
+            if ma != mb:
+                raise AssertionError(f"manifest.json differs: {ma} != {mb}")
+            continue
+        with open(pa, "rb") as fa, open(pb, "rb") as fb:
+            if fa.read() != fb.read():
+                raise AssertionError(f"{nm} differs")
+    return files

@@ -17,6 +17,8 @@ from gappadder_tpu.parallel import slice as jsl
 from gappadder_tpu_torch.ops import dbg as tdbg
 from gappadder_tpu_torch.parallel import slice as tsl
 
+from test_torch_run_scenarios import one_torch_thread  # noqa: F401
+
 
 def _rc(s):
     return dna.decode(dna.revcomp(dna.encode(s)))

@@ -17,6 +17,8 @@ from gappadder_tpu_torch.parallel import slice as sl
 from gappadder_tpu_torch.pipeline import fused, run
 from gappadder_tpu_torch.utils import log
 
+from test_torch_run_scenarios import one_torch_thread  # noqa: F401
+
 CAP_KEYS = ("kmer_table_grow", "kmer_table_truncated", "dbg_node_cap_grow",
             "unitig_slots_grow", "contig_len_grow", "contig_len_truncated")
 SCENARIOS = {

@@ -1,6 +1,7 @@
 """The port's CUDA paths on a card: the SW, sort and probe kernels
 against their plain versions, and the fused step, the Assembly batch,
-Pick and the Assembly+Pick driver on the card against their CPU runs.
+Pick, the Assembly+Pick driver, Preprocess and Collect and the CLI on
+the card against their CPU runs.
 These
 tests need a CUDA device and skip elsewhere; they import no JAX, so
 they also run where only the port's dependencies are installed:
@@ -303,6 +304,53 @@ def test_ingest_on_card_matches_cpu(cuda, tmp_path):
             with open(os.path.join(gpu.path(sub), n), "rb") as a, \
                     open(os.path.join(cpu.path(sub), n), "rb") as b:
                 assert a.read() == b.read(), (sub, n)
+
+
+@pytest.mark.gpu
+def test_cli_on_card_matches_cpu(cuda, tmp_path):
+    """The CLI's `-c All --parity-files` and `-c Evaluate` on a reduced
+    `collect_scenario` (2 scaffolds of 20 kb, 4 gaps, the paired-end
+    library), on the card and then with `--device cpu` on the same
+    workspace path: every workspace file equal (the .npz files array by
+    array, the manifest but for its times); both kernels ran on the
+    card; Evaluate hits every gap."""
+    import io
+    import json
+    import shutil
+    from contextlib import redirect_stdout
+    from gappadder_tpu_torch import cli
+    from gappadder_tpu_torch.io import fasta
+    from gappadder_tpu_torch.testcases import (collect_scenario, config_dict,
+                                               same_workspace)
+    scn = tmp_path / "scn"
+    cfg, truth = collect_scenario(
+        str(scn), 3, n_scaffolds=2, scaffold_len=20_000, gaps_per_scaffold=2,
+        libraries=((300, 50, 100, 30.0),), n_open=0,
+        kmers=((25, 21), (31, 27)))
+    with open(scn / "config.json", "w") as fh:
+        json.dump(config_dict(cfg), fh)
+    fasta.write_fasta(scn / "truth.fa", [
+        (f"scaffold_{i}", s) for i, s in enumerate(truth["scaffolds"])])
+    printed = {}
+    for where in ("cuda", "cpu"):
+        sws, sorts = sw_cuda.launches, psort.launches
+        out = io.StringIO()
+        with redirect_stdout(out):
+            for argv in (["-c", "All", "--parity-files"],
+                         ["-c", "Evaluate", "--finished",
+                          str(scn / "truth.fa")]):
+                assert cli.main(argv + ["-g", str(scn / "config.json"),
+                                        "--device", where]) == 0
+        printed[where] = out.getvalue()
+        launched = sw_cuda.launches > sws and psort.launches > sorts
+        assert launched == (where == "cuda")
+        if where == "cuda":
+            shutil.move(cfg.workdir, str(tmp_path / "card"))
+    names = same_workspace(str(tmp_path / "card"), cfg.workdir)
+    assert "filled_scaffolds.fa" in names and "hit_list.txt" in names
+    assert printed["cuda"] == printed["cpu"]
+    hits = open(tmp_path / "card" / "hit_list.txt").read().split()
+    assert len(hits) == 4
 
 
 def _same_and_counted(key, kernel, plain):

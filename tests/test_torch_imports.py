@@ -9,6 +9,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_run_scenarios import one_torch_thread  # noqa: F401
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "gappadder_tpu_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py"]
@@ -82,7 +84,9 @@ SLICE_MODULES = ["config", "utils.log", "io.fastq", "ops.swutil",
                  "parallel.mp", "pipeline.preprocess", "pipeline.rescue",
                  "pipeline.workspace", "testcases", "io.native", "io.bam",
                  "ops.minimap", "ops.gapscan", "pipeline.collect",
-                 "pipeline.patch"]
+                 "pipeline.patch", "cli", "utils.meters", "ops.coverage",
+                 "tools.__init__", "tools.evaluate", "tools.refiner",
+                 "tools.scaffold"]
 
 
 @pytest.mark.parametrize("mod", SLICE_MODULES)
@@ -216,6 +220,92 @@ def test_driver_entry_points_refuse_without_gpu(monkeypatch, driver_inputs,
     """The driver and its device stages run on the card unless asked for
     the CPU, and raise without a card; nothing falls back on its own."""
     call = _driver_entries(*driver_inputs)[entry]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call(device="cuda")
+    assert call(device="cpu") is not None
+
+
+def _tool_entries(tmp_path):
+    """The CLI, Evaluate, the tools and the non-fused batch, each on a
+    toy input."""
+    import json
+    from gappadder_tpu_torch import cli
+    from gappadder_tpu_torch.config import Config
+    from gappadder_tpu_torch.io import fasta
+    from gappadder_tpu_torch.ops import swutil
+    from gappadder_tpu_torch.ops.sw_host import BWA_PARAMS
+    from gappadder_tpu_torch.pipeline import assemble
+    from gappadder_tpu_torch.tools import evaluate, refiner, scaffold
+    rng = np.random.default_rng(0)
+    t = rng.integers(0, 4, 400).astype(np.int8)
+    genome = fasta.Genome(seq=t, offsets=np.array([0]),
+                          lengths=np.array([400]), names=["s"])
+    fasta.write_fasta(tmp_path / "d.fa", [("s", t)])
+    with open(tmp_path / "c.json", "w") as fh:
+        json.dump({"draft_genome": {"fa": "d.fa"},
+                   "parameters": {"working_folder": "w"}}, fh)
+    reads = np.tile(t[None, None, :60], (1, 4, 1))
+    rlen = np.full((1, 4), 60, np.int32)
+    cfg = Config(draft_genome="d.fa", kmers=((17, 15),))
+    gaps = {"start": np.array([200]), "end": np.array([220])}
+    fl, fr = t[None, 100:195], t[None, 225:320]
+    lens = (np.array([95]), np.array([95]))
+    rec = {"gap": np.array([0]), "lib": np.array([0]), "side": np.array([0]),
+           "row": np.array([0])}
+
+    class Reads:
+        length = np.array([60], np.int32)
+
+        def get_seq(self, r):
+            return t[:60]
+    links = [(0, "a", 100, "+", 1, "b", 100, "+", 5, -20.0, -20.0, -20.0)]
+    return {
+        "cli.main": lambda **kw: cli.main(
+            ["-c", "Preprocess", "-g", str(tmp_path / "c.json")]
+            + (["--device", kw["device"]] if kw else [])),
+        "sw_small": lambda **kw: swutil.sw_small([t[:30]], [t], BWA_PARAMS,
+                                                 "local", **kw),
+        "_best_placement": lambda **kw: evaluate._best_placement(
+            t[50:90], genome, **kw),
+        "seeded_placements": lambda **kw: evaluate.seeded_placements(
+            [t[50:150]], genome, **kw),
+        "extract_true_gap_seqs": lambda **kw: evaluate.extract_true_gap_seqs(
+            gaps, genome, fl, fr, lens, **kw),
+        "closure_stats": lambda **kw: evaluate.closure_stats(
+            {0: t[190:230]}, {0: t[190:230]}, **kw),
+        "discordant_alignment_stats":
+            lambda **kw: evaluate.discordant_alignment_stats(
+                rec, [(Reads(), None)], {0: t[:100]}, gaps, **kw),
+        "classify_repeat": lambda **kw: refiner.classify_repeat(
+            t[:50], t[:50], **kw),
+        "build_scaffolds": lambda **kw: scaffold.build_scaffolds(
+            [t[:100], t[80:180]], ["a", "b"], links, **kw),
+        "gap_distinct_kmers": lambda **kw: assemble.gap_distinct_kmers(
+            reads, rlen, np.array([4]), 17, 256, **kw),
+        "count_gap_kmers": lambda **kw: assemble.count_gap_kmers(
+            cfg, reads, rlen, np.array([4]), 17, 256, **kw),
+        "assemble_gap_batch": lambda **kw: assemble.assemble_gap_batch(
+            cfg, reads, rlen, np.array([4]), 256, **kw),
+    }
+
+
+TOOL_ENTRIES = ["cli.main", "sw_small", "_best_placement",
+                "seeded_placements", "extract_true_gap_seqs", "closure_stats",
+                "discordant_alignment_stats", "classify_repeat",
+                "build_scaffolds", "gap_distinct_kmers", "count_gap_kmers",
+                "assemble_gap_batch"]
+
+
+@pytest.mark.parametrize("entry", TOOL_ENTRIES)
+def test_cli_and_tool_entry_points_refuse_without_gpu(monkeypatch, tmp_path,
+                                                      entry):
+    """The CLI (no --device: the card), Evaluate, the tools and the
+    non-fused batch run on the card unless asked for the CPU, and raise
+    without a card; nothing falls back on its own."""
+    call = _tool_entries(tmp_path)[entry]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()

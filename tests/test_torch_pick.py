@@ -18,6 +18,8 @@ from gappadder_tpu_torch.parallel import slice as sl
 from gappadder_tpu_torch.pipeline import fused, pick, run
 from gappadder_tpu_torch.testcases import sw_test_pairs
 
+from test_torch_run_scenarios import one_torch_thread  # noqa: F401
+
 KSET = ((17, 15), (21, 19))
 
 

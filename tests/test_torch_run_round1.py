@@ -52,22 +52,3 @@ def test_fastq_scan_and_fasta_writers_match_jax(tmp_path):
     assert g.names == jg.names and g.seq.tolist() == jg.seq.tolist()
     assert [n for n, _ in fasta.iter_fasta(tmp_path / "a.fa")] == \
         ["a", "empty", "s"]
-
-
-def test_non_fused_batch_raises(tmp_path):
-    """`tpu.fused=False` (the JAX package's host-glued batch) is not
-    ported: the driver says so instead of running something else."""
-    import dataclasses
-
-    import pytest
-    from gappadder_tpu_torch.config import Config, TpuParams
-    from gappadder_tpu_torch.parallel import slice as sl
-    from gappadder_tpu_torch.pipeline import run
-    from gappadder_tpu_torch.testcases import driver_workspace
-    dims, args = sl.example_data(1, gaps_per_shard=1, kset=((17, 15),))
-    rowtab = sl.run_step(dims, args, device="cpu")[4].numpy()
-    ws, rec, readsets, _, _ = driver_workspace(tmp_path, args, rowtab)
-    cfg = Config(draft_genome="d.fa", kmers=((17, 15),))
-    cfg = dataclasses.replace(cfg, tpu=TpuParams(fused=False))
-    with pytest.raises(NotImplementedError, match="non-fused"):
-        run.run_assembly_and_pick(cfg, ws, rec, readsets, device="cpu")

@@ -13,6 +13,8 @@ from gappadder_tpu.parallel import slice as jsl
 from gappadder_tpu.parallel.mesh import make_mesh
 from gappadder_tpu_torch.parallel import slice as tsl
 
+from test_torch_run_scenarios import one_torch_thread  # noqa: F401
+
 NAMES = ("counts", "hist", "n_recv", "n_reads", "rowtab", "hqtab", "useq",
          "ulen", "ucnt", "score", "qend", "tend")
 KSET6 = ((30, 29), (30, 27), (40, 39), (40, 37), (50, 49), (50, 47))
