@@ -108,6 +108,16 @@ OPS_ARGMAX = 8
 # A + B + C + D + E and column max: 5 an element, once.
 SW_LEVEL_OPS = {0: 0, 1: 2, 2: 7, 3: 18}
 YARDSTICKS = ((1, False), (1, True), (2, True))   # (lanes, dpx)
+# rows 3 and 7 (the copies): interleaved windows of calls at the script
+# shapes; where bytes set the time (t int32 [16, 2^24], row 11; int16
+# [32, 2^22]) fewer calls a window; an odd int16 shape (tails, a start
+# 2 bytes into its storage, more than 1024 rows); the host's parts of
+# one call, each timed over 10,000 calls
+COPY_WINDOWS, COPY_REPS, FILL_REPS = 7, 50, 10
+SUBLANE_FILL = (16, 1 << 24, 11)
+INT16_FILL = (32, 1 << 22)
+INT16_ODD = (3000, 4097)
+HOST_PART_CALLS, HOST_PART_ROUNDS = 10_000, 5
 FILL_TILES_PER_SM = 4
 MODES = ("local", "overlap", "fit", "extend")
 # the merge's screens send whole contigs: the 2048-row bucket of a
@@ -681,8 +691,8 @@ def main() -> int:
                           FILL_TILES_PER_SM * props.multi_processor_count)
     emit(phase="probe_check", launches=launches["probes"], **pcheck,
          script_outputs_equal_plain=True)
-    ptimes = probe_times(kernel_experiments, swprobe, int16_repro, dev,
-                         props.multi_processor_count, ops_s)
+    ptimes = probe_times(kernel_experiments, swprobe, int16_repro, probes,
+                         dev, props.multi_processor_count, ops_s)
     emit(phase="probe_time", **ptimes, smi=card)
 
     # ---- phase 11: the driver path (run_assembly_and_pick) ---------------
@@ -714,6 +724,22 @@ def main() -> int:
         emit(phase="cli_time", **clirun, phase_s=time.perf_counter() - t,
              smi=card)
 
+    def copy_fields(r):
+        """Rows 3 and 7: where bytes set the time, the odd shape, the
+        launch floor."""
+        if "launch_floor_ms" not in r:
+            return {}
+        f = r["fill"]
+        return {"fill_ms": f["ms"], "fill_device_ms": f["device_ms"],
+                "fill_bound_ms": f["bound_ms"],
+                "fill_library_ms": f["library_ms"],
+                "fill_shape": f["shape"],
+                "launch_floor_ms": r["launch_floor_ms"],
+                **({"odd_ms": r["odd"]["ms"],
+                    "odd_device_ms": r["odd"]["device_ms"],
+                    "odd_library_ms": r["odd"]["library_ms"]}
+                   if "odd" in r else {})}
+
     probe_rows = [{
         "name": name, "route": "cuda",
         "source": "gappadder_tpu_torch/csrc/probes.cu", "replaces": where,
@@ -721,12 +747,14 @@ def main() -> int:
         "max_abs_err": float(pcheck["max_abs_err"][key]),
         **{k: ptimes[key][k] for k in ("ms", "device_ms", "plain_ms",
                                        "bound_ms", "bound_by", "library_ms")},
+        **copy_fields(ptimes[key]),
         "launches_by_path": {p: v[key] for p, v in launches.items()},
         "check": "exact equality with the plain twin (probe_check line); "
                  "times at the script's shape (probe_time line), where the "
                  "dependent chain of steps (the copies: the launch) sets "
                  "the time far above the throughput bound; rows 4-6 also "
-                 "at 4 tiles an SM there"}
+                 "at 4 tiles an SM there, rows 3 and 7 where bytes set "
+                 "the time (fill_*) and at an odd shape (odd_*)"}
         for key, (name, where) in PROBE_KERNELS.items()]
     emit(kernels=[{
         "name": "sw_batch_cuda", "route": "cuda",
@@ -904,6 +932,51 @@ class DriverClock:
         stack.enter_context(patched(psort, "bitonic_sort", sort_record))
 
 
+def open_gap_driver(dev, tmp, err_rate: float) -> dict:
+    """The open-gap toy driver (`testcases.open_gap_workspace`, reads
+    substituted at `err_rate`): the port's Preprocess and Collect, then
+    `run_assembly_and_pick` from the workspace's checkpoints, on the
+    card and on the CPU. Rescue and round 2 cannot close the gap; the
+    relaxed final pick must extend it; with read errors HQ must build a
+    pseudo-contig. The card's workspace files, fills, extensions, contig
+    stores and pseudo-contigs must equal the CPU's."""
+    from gappadder_tpu_torch.pipeline import rescue, run
+    from gappadder_tpu_torch.testcases import (open_gap_workspace,
+                                               same_workspace)
+    outs, built = [], []
+    inner = rescue.hq_pseudo_contigs
+
+    def counted(*a, **kw):
+        out = inner(*a, **kw)
+        built[-1].append([c.tolist() for c in out])
+        return out
+
+    for where in (dev, "cpu"):
+        built.append([])
+        cfg, ws, _truth, _span, kept = open_gap_workspace(
+            os.path.join(tmp, f"open_gap_{err_rate}", str(where)),
+            err_rate=err_rate, device=where)
+        with patched(rescue, "hq_pseudo_contigs", counted):
+            outs.append((ws, run.run_assembly_and_pick(cfg, ws,
+                                                       device=where)))
+    (ws, got), (cws, want) = outs
+    same_workspace(ws.root, cws.root, ("gaps.npz", "recruits.npz",
+                                       "both_unmapped.npz") + DRIVER_FILES)
+    if plain_values(got) != plain_values(want) or built[0] != built[1]:
+        raise AssertionError(f"open-gap driver ({err_rate}): card != CPU")
+    fills, exts, _store = got
+    if fills or 0 not in exts or len(exts[0][0]) < 1:
+        raise AssertionError(f"open-gap driver ({err_rate}): fills "
+                             f"{list(fills)}, extensions {list(exts)}")
+    pseudo = sum(len(b) for b in built[0])
+    if err_rate and pseudo < 1:
+        raise AssertionError(f"open-gap driver ({err_rate}): HQ built no "
+                             "pseudo-contig on the card")
+    return {"equal_cpu": True, "read_error_rate": err_rate,
+            "extended_bases": len(exts[0][0]), "both_unmapped_kept": kept,
+            "hq_calls": len(built[0]), "hq_pseudo_contigs": pseudo}
+
+
 def plain_values(x):
     """Nested dicts, tuples and arrays as plain Python values."""
     if isinstance(x, dict):
@@ -932,7 +1005,9 @@ def driver_phase(pargs, rowtab, dev, ops_s, reset_counts,
                                          sw_cuda, swutil)
     from gappadder_tpu_torch.parallel import slice as sl
     from gappadder_tpu_torch.pipeline import fused, rescue, run
-    from gappadder_tpu_torch.testcases import driver_workspace, same_workspace
+    from gappadder_tpu_torch.testcases import (OPEN_GAP_READ_ERRORS,
+                                               driver_workspace,
+                                               same_workspace)
 
     check: dict = {"toy": {}}
     with tempfile.TemporaryDirectory() as tmp:
@@ -958,6 +1033,9 @@ def driver_phase(pargs, rowtab, dev, ops_s, reset_counts,
                                      "gap with the planted bases")
             check["toy"][name] = {"equal_cpu": True, "filled": len(got[0]),
                                   "held_back_reads": held}
+        for err_rate in (0.0, OPEN_GAP_READ_ERRORS):
+            check["toy"][f"open_gap_{err_rate}"] = open_gap_driver(
+                dev, tmp, err_rate)
 
         # production: the 8 gaps nearest 250 bp need rescue and round 2
         glens = np.asarray(pargs[17]) - np.asarray(pargs[16])
@@ -1661,7 +1739,7 @@ def sort_shape_times(psort, calls) -> list:
         bound_ms = 2 * 8 * elems * (nk + npay) / HBM_BYTES_PER_S * 1e3
         kern_fn = lambda: psort.bitonic_sort(ops, nk)
         kern = cuda_ms(kern_fn, 10)
-        dev_ms, cuda_launches = kernel_profile(kern_fn, 5, "psort_")
+        dev_ms, cuda_launches, _ = kernel_profile(kern_fn, 5, "psort_")
         plain = cuda_ms(lambda: psort.bitonic_sort_plain(ops, nk), 10)
         library = library_sort(ops, nk)
         lib = None
@@ -1734,10 +1812,22 @@ def check_probes(ke, sp, ir, dev, fill_tiles: int) -> dict:
         for level in sp.LEVELS:
             same("swprobe", sp.run(x, level), sp.run_plain(x, level))
     for x in (ir.script_input(), probe_input("int16_full", ir.SHAPE, 4),
-              probe_input("int16_full", (7, 33), 5)):
+              probe_input("int16_full", (7, 33), 5),
+              probe_input("int16_full", (1, 7), 6),
+              probe_input("int16_full", (1025, 33), 7)):
         x = on(x)
         same("int16_elementwise", ir.elementwise(x), ir.elementwise_plain(x))
         same("int16_roll", ir.roll(x), ir.roll_plain(x))
+    # rows off the 16-byte vector; the copies where bytes set the time and
+    # at the odd shape (3000 rows, a start 2 bytes into its storage)
+    t = on(probe_input("beyond_int16", (9, 37), 3))
+    for j in (0, 1, 2, 3, 9, -1):
+        idx = torch.tensor([[j]], dtype=torch.int32, device=dev)
+        same("dynamic_sublane", ke.exp_dynamic_sublane(t, idx),
+             ke.exp_dynamic_sublane_plain(t, idx))
+    for key, label, case in copy_cases(ke, ir, dev):
+        if label != "script":
+            same(key, case["kernel"](), case["plain"]())
     return {"cases": cases, "max_abs_err": errs}
 
 
@@ -1751,7 +1841,7 @@ def bound(ops: float, nbytes: float, ops_s: float) -> dict:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
-def probe_times(ke, sp, ir, dev, sms: int, ops_s: float) -> dict:
+def probe_times(ke, sp, ir, probes, dev, sms: int, ops_s: float) -> dict:
     """Each probe kernel at its script's shape: ms by CUDA events over
     back-to-back launches (at the small shapes that is the host's issue
     time of a wrapper call), the kernel's own device ms (profiler), its
@@ -1760,7 +1850,11 @@ def probe_times(ke, sp, ir, dev, sms: int, ops_s: float) -> dict:
     the int16 loop's yardsticks) also at 4 tiles of 128 columns an SM,
     per step and, for swprobe, per tile-step and level. At the script's
     small shapes the dependent chain of steps (or, for the copies, the
-    launch) sets the time, not the throughput bound."""
+    launch) sets the time, not the throughput bound. Rows 3 and 7 (the
+    copies) in interleaved windows with their library call and plain
+    twin, also where bytes set the time and at an odd shape
+    (`copy_cases`), with the launch floor; and the host's parts of one
+    wrapper call (`host_parts`)."""
     fill = FILL_TILES_PER_SM * sms
     res = {}
 
@@ -1772,17 +1866,6 @@ def probe_times(ke, sp, ir, dev, sms: int, ops_s: float) -> dict:
                 "plain_ms": cuda_ms(plain, plain_reps),
                 "library_ms": cuda_ms(library, reps) if library else None,
                 **bound(ops, nbytes, ops_s)}
-
-    t = torch.from_numpy(ke.script_table()).to(dev)
-    idx = torch.tensor([[ke.SUBLANE_ROW]], dtype=torch.int32, device=dev)
-    jl = idx.reshape(1).long()
-    W = t.shape[1]
-    res["dynamic_sublane"] = dict(timed(
-        lambda: ke.exp_dynamic_sublane(t, idx),
-        lambda: ke.exp_dynamic_sublane_plain(t, idx), 0, 4 + 8 * W,
-        "dynamic_sublane_kernel",
-        library=lambda: torch.index_select(t, 0, jl), plain_reps=50),
-        shape=list(t.shape))
 
     steps = ke.STEPS
 
@@ -1837,37 +1920,209 @@ def probe_times(ke, sp, ir, dev, sms: int, ops_s: float) -> dict:
                        (S * W))
     res["swprobe"] = dict(levels["level3_script"], levels=levels)
 
-    x = torch.from_numpy(ir.script_input()).to(dev)
-    n = x.numel()
-    res["int16_elementwise"] = dict(timed(
-        lambda: ir.elementwise(x), lambda: ir.elementwise_plain(x), n * 3 / 2,
-        4 * n, "int16_elementwise_kernel", plain_reps=50),
-        shape=list(x.shape))
-    res["int16_roll"] = dict(timed(
-        lambda: ir.roll(x), lambda: ir.roll_plain(x), 0, 4 * n,
-        "int16_roll_kernel", library=lambda: torch.roll(x, 1, 0),
-        plain_reps=50), shape=list(x.shape))
+    # rows 3 and 7: the copies at the script shapes, at fill and odd
+    for key, label, case in copy_cases(ke, ir, dev):
+        r = time_copy_case(case, ops_s)
+        if label == "script":
+            res[key] = r
+        else:
+            res[key][label] = r
+    res["host_parts"] = host_parts(ke, ir, probes, dev)
     return res
+
+
+def interleaved(fns: dict, reps: int, windows: int = COPY_WINDOWS) -> dict:
+    """ms per call of each of `fns` by CUDA events: `windows` rounds, in
+    each one window of `reps` back-to-back calls of every fn in turn
+    (kernel, library, plain, kernel, ...). Every window and the median
+    by fn."""
+    for f in fns.values():
+        f()
+    got = {k: [] for k in fns}
+    for _ in range(windows):
+        for k, f in fns.items():
+            got[k].append(cuda_ms(f, reps))
+    return {k: {"median_ms": float(np.median(v)), "windows_ms": v}
+            for k, v in got.items()}
+
+
+def copy_cases(ke, ir, dev):
+    """Rows 3 and 7 (the dynamic row read, int16 roll and elementwise)
+    as timing cases, each built when it is reached: (launch counter,
+    shape label, case). Labels: "script" (the script's shape, where the
+    launch sets the time), "fill" (where bytes set it: t int32 [16,
+    2^24] with row 11, int16 [32, 2^22]) and, for the int16 pair,
+    "odd" (int16 [3000, 4097] starting 2 bytes into its storage: more
+    than 1024 rows, widths off the 16-byte vector, a misaligned
+    start). A case: kernel, plain, library (or None), the kernel's
+    name tag, the bytes its function must move (each input read once,
+    each output written once) and the shape."""
+    def sublane(t, j):
+        idx = torch.tensor([[j]], dtype=torch.int32, device=dev)
+        jl = idx.reshape(1).long()
+        return {"kernel": lambda: ke.exp_dynamic_sublane(t, idx),
+                "plain": lambda: ke.exp_dynamic_sublane_plain(t, idx),
+                "library": lambda: torch.index_select(t, 0, jl),
+                "library_call": "torch.index_select",
+                "tag": "dynamic_sublane_kernel", "bytes": 4 + 8 * t.shape[1],
+                "shape": list(t.shape)}
+
+    def int16(x):
+        n = x.numel()
+        yield "int16_roll", {
+            "kernel": lambda: ir.roll(x), "plain": lambda: ir.roll_plain(x),
+            "library": lambda: torch.roll(x, 1, 0),
+            "library_call": "torch.roll", "tag": "int16_roll_kernel",
+            "bytes": 4 * n, "shape": list(x.shape)}
+        yield "int16_elementwise", {
+            "kernel": lambda: ir.elementwise(x),
+            "plain": lambda: ir.elementwise_plain(x), "library": None,
+            "library_call": "none: no one PyTorch call computes wrapping "
+                            "max(x + 3, x - 2)",
+            "tag": "int16_elementwise_kernel", "bytes": 4 * n,
+            "shape": list(x.shape)}
+
+    yield "dynamic_sublane", "script", sublane(
+        torch.from_numpy(ke.script_table()).to(dev), ke.SUBLANE_ROW)
+    R, W, j = SUBLANE_FILL
+    yield "dynamic_sublane", "fill", sublane(
+        torch.arange(R * W, dtype=torch.int32, device=dev).view(R, W), j)
+    g = torch.Generator(device=dev).manual_seed(7)
+    S, W = INT16_ODD
+    base = torch.randint(-(1 << 15), 1 << 15, (S * W + 1,), generator=g,
+                         device=dev, dtype=torch.int32).to(torch.int16)
+    for label, x in (("script", torch.from_numpy(ir.script_input()).to(dev)),
+                     ("fill", torch.randint(
+                         -(1 << 15), 1 << 15, INT16_FILL, generator=g,
+                         device=dev, dtype=torch.int32).to(torch.int16)),
+                     ("odd", base[1:].view(S, W))):
+        for key, case in int16(x):
+            yield key, label, case
+
+
+def time_copy_case(case, ops_s: float) -> dict:
+    """One copy case: the kernel, its library call and its plain twin in
+    interleaved windows (`interleaved`: 7 windows of 50 calls at the
+    script shape, of 10 where bytes set the time), the kernel's device
+    ms and the launch floor by the profiler, and the bytes bound."""
+    small = case["bytes"] < 1 << 20
+    reps = COPY_REPS if small else FILL_REPS
+    fns = {"kernel": case["kernel"], "library": case["library"],
+           "plain": case["plain"]}
+    w = interleaved({k: f for k, f in fns.items() if f}, reps)
+    device_ms, floor_ms = kernel_device_times(case["kernel"], reps,
+                                              case["tag"])
+    b = bound(0, case["bytes"], ops_s)
+    lib = w.get("library", {})
+    return {"shape": case["shape"], "bytes": case["bytes"],
+            "ms": w["kernel"]["median_ms"],
+            "windows_ms": w["kernel"]["windows_ms"],
+            "device_ms": device_ms, "launch_floor_ms": floor_ms,
+            "plain_ms": w["plain"]["median_ms"],
+            "plain_windows_ms": w["plain"]["windows_ms"],
+            "library_ms": lib.get("median_ms"),
+            "library_windows_ms": lib.get("windows_ms"),
+            "library_call": case["library_call"], **b,
+            "device_bound_share": b["bound_ms"] / device_ms,
+            "calls_per_window": reps}
+
+
+def host_parts(ke, ir, probes, dev, calls: int = HOST_PART_CALLS,
+               rounds: int = HOST_PART_ROUNDS) -> dict:
+    """Host nanoseconds of one call of each part of the probe wrappers'
+    launch path, and of whole calls, at the scripts' shapes on inputs
+    that already lie on the card: each part `calls` times back to back
+    (time.perf_counter_ns), in `rounds` rounds of calls / rounds with
+    the parts in turn, the median round. "loop" is the empty call that
+    every other figure includes. The C entry's call ("ctypes_launch")
+    launches the row-read kernel with pointers ready and the stream
+    read beforehand; "ctypes_no_launch" is that call on 0 rows, which
+    returns before the launch."""
+    from gappadder_tpu_torch import entry_device
+    t = torch.from_numpy(ke.script_table()).to(dev)
+    idx = torch.tensor([[ke.SUBLANE_ROW]], dtype=torch.int32, device=dev)
+    jl = idx.reshape(1).long()
+    x = torch.from_numpy(ir.script_input()).to(dev)
+    out = torch.empty((1, t.shape[1]), dtype=torch.int32, device=dev)
+    ke.exp_dynamic_sublane(t, idx)
+    fn = probes._fns["dynamic_sublane"]
+    index = t.get_device()
+    raw = torch._C._cuda_getCurrentRawStream
+    cargs = [idx.data_ptr(), t.data_ptr(), t.shape[0], t.shape[1],
+             out.data_ptr(), index, raw(index)]
+    noop = cargs[:2] + [0] + cargs[3:]
+
+    def context():
+        with torch.cuda.device(dev):
+            pass
+
+    parts = {
+        "loop": lambda: None,
+        "entry_device": lambda: entry_device("cuda", "probe"),
+        "tensor_on": lambda: probes.tensor_on(t, torch.int32, dev, "probe"),
+        "torch_empty": lambda: torch.empty((1, t.shape[1]),
+                                           dtype=torch.int32, device=dev),
+        "new_empty": lambda: t.new_empty((1, t.shape[1])),
+        "empty_like": lambda: torch.empty_like(x),
+        "device_context": context,
+        "current_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "raw_stream": lambda: raw(index),
+        "inputs": lambda: probes.inputs("probe", "cuda", torch.int32, t, idx),
+        "data_ptr": t.data_ptr,
+        "ctypes_launch": lambda: fn(*cargs),
+        # the same call on 0 rows: the entry returns before it launches
+        "ctypes_no_launch": lambda: fn(*noop),
+        "index_select": lambda: torch.index_select(t, 0, jl),
+        "roll": lambda: torch.roll(x, 1, 0),
+        "exp_dynamic_sublane": lambda: ke.exp_dynamic_sublane(t, idx),
+        "int16_repro.roll": lambda: ir.roll(x),
+        "int16_repro.elementwise": lambda: ir.elementwise(x),
+    }
+    per = calls // rounds
+    got = {k: [] for k in parts}
+    for f in parts.values():
+        for _ in range(100):
+            f()
+    torch.cuda.synchronize()
+    for _ in range(rounds):
+        for k, f in parts.items():
+            t0 = time.perf_counter_ns()
+            for _ in range(per):
+                f()
+            got[k].append((time.perf_counter_ns() - t0) / per)
+            torch.cuda.synchronize()
+    return {"calls": calls, "rounds": rounds,
+            "ns": {k: float(np.median(v)) for k, v in got.items()},
+            "rounds_ns": got}
 
 
 def kernel_device_ms(fn, reps: int, tag: str, tries: int = 3) -> float:
     """Mean device milliseconds of the one CUDA kernel launch of fn whose
-    name holds `tag`, over `reps` calls (`kernel_profile`). A profiling
-    run that records too few of the launches (the tracer now and then
-    drops a whole run's events) is taken again, up to `tries` runs."""
+    name holds `tag`, over `reps` calls (`kernel_device_times`)."""
+    return kernel_device_times(fn, reps, tag, tries)[0]
+
+
+def kernel_device_times(fn, reps: int, tag: str, tries: int = 3) -> tuple:
+    """(mean device ms of fn's kernel whose name holds `tag`, mean device
+    ms of the profiling run's `warm.add_(1)` launches: the launch floor,
+    what a kernel that does nearly nothing takes on the device) over
+    `reps` calls (`kernel_profile`). A profiling run that records too
+    few of the launches (the tracer now and then drops a whole run's
+    events) is taken again, up to `tries` runs."""
     seen = []
     for _ in range(tries):
-        total_ms, n = kernel_profile(fn, reps, tag)
+        total_ms, n, floor_ms = kernel_profile(fn, reps, tag)
         if reps // 2 <= n <= reps:
-            return total_ms / n
+            return total_ms / n, floor_ms
         seen.append(n)
     raise AssertionError(f"profiler saw {seen} {tag} launches of {reps}")
 
 
 def kernel_profile(fn, reps: int, tag: str) -> tuple:
     """Device milliseconds and count of the CUDA kernels whose name holds
-    `tag` over `reps` calls of fn, by torch.profiler. Eight small copies
-    go first and eight last: a profiling run can miss launches at its
+    `tag` over `reps` calls of fn, by torch.profiler, and the mean device
+    ms of the `warm.add_(1)` launches around them. Eight small adds go
+    first and eight last: a profiling run can miss launches at its
     edges (its first one; late in a long process on an H100, 4 of each
     run)."""
     from torch.autograd import DeviceType
@@ -1884,9 +2139,12 @@ def kernel_profile(fn, reps: int, tag: str) -> tuple:
         for _ in range(8):
             warm.add_(1)
         torch.cuda.synchronize()
-    mine = [e for e in prof.events()
-            if e.device_type == DeviceType.CUDA and tag in e.name]
-    return sum(e.self_device_time_total for e in mine) / 1e3, len(mine)
+    cuda = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    mine = [e for e in cuda if tag in e.name]
+    adds = [e.self_device_time_total for e in cuda
+            if "add" in e.name and tag not in e.name]
+    return (sum(e.self_device_time_total for e in mine) / 1e3, len(mine),
+            sum(adds) / len(adds) / 1e3 if adds else None)
 
 
 def block_times(sl, dims, a):

@@ -25,9 +25,23 @@
 // never leaves the SM, so at a size that fills the card they are bound by
 // operations, and at the scripts' single-tile shapes (one or two blocks
 // an SM at most) by the dependent chain of steps: each step waits for the
-// barrier and for the row above's value of the step before. The two
-// copies (dynamic_sublane, int16_roll) and int16_elementwise are bound by
-// bytes, and at the scripts' shapes by the launch.
+// barrier and for the row above's value of the step before.
+//
+// The two copies (dynamic_sublane, int16_roll) and int16_elementwise are
+// bound by bytes, and at the scripts' shapes by the launch. They share
+// one streaming map (`map_range`): dst[i] = op(src[i]) over a contiguous
+// range, each thread storing whole 16-byte vectors at 16-byte aligned
+// addresses of dst, neighbouring threads on neighbouring vectors, and
+// keeping UNROLL loads in flight before it stores; the grid is a few
+// blocks an SM and strides over the range. The source may start at any
+// element (a row of a table whose width is no multiple of 4, a view 2
+// bytes into its storage): the thread then reads the two aligned vectors
+// that hold its 16 bytes and shifts them into place with funnel shifts,
+// so loads stay 16-byte and coalesced. The elements before dst's first
+// aligned vector and after its last are scalar. No shared memory, no
+// barrier. The roll of rows (row r takes row r - 1, row 0 the last) is
+// two such ranges: out[W:] = x[:(S - 1) W] and out[:W] = x[(S - 1) W:],
+// so it takes any number of rows.
 //
 // int32 additions go through unsigned arithmetic so they wrap as XLA's
 // do; the int16x2 SIMD intrinsics wrap per halfword as int16 does.
@@ -43,6 +57,98 @@ __device__ __forceinline__ int wadd(int a, int b) {
   return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
 }
 
+// ---- the streaming map of the copies ------------------------------------
+constexpr int MAP_THREADS = 256;
+constexpr int MAP_UNROLL = 4;        // 16-byte loads a thread keeps in flight
+constexpr int MAP_BLOCKS_PER_SM = 4;
+
+// the 16 bytes at byte offset m (even, 0..14) of the 32 bytes a:b
+__device__ __forceinline__ uint4 shifted(uint4 a, uint4 b, int m) {
+  const unsigned s = (m & 3) * 8;
+  unsigned w0, w1, w2, w3, w4;
+  switch (m >> 2) {
+    case 0: w0 = a.x; w1 = a.y; w2 = a.z; w3 = a.w; w4 = b.x; break;
+    case 1: w0 = a.y; w1 = a.z; w2 = a.w; w3 = b.x; w4 = b.y; break;
+    case 2: w0 = a.z; w1 = a.w; w2 = b.x; w3 = b.y; w4 = b.z; break;
+    default: w0 = a.w; w1 = b.x; w2 = b.y; w3 = b.z; w4 = b.w; break;
+  }
+  uint4 r;
+  r.x = __funnelshift_r(w0, w1, s);
+  r.y = __funnelshift_r(w1, w2, s);
+  r.z = __funnelshift_r(w2, w3, s);
+  r.w = __funnelshift_r(w3, w4, s);
+  return r;
+}
+
+// dst[i] = Op::one(src[i]) for i in [0, n), by every thread of the grid
+// (thread `tid` of `nthreads`); Op::vec maps 16 bytes of elements at
+// once. The aligned vectors that hold a whole vector's source bytes lie
+// inside the source's 16-byte chunks that hold at least one of its bytes,
+// so no read leaves the memory the source's pages map.
+template <typename T, class Op>
+__device__ __forceinline__ void map_range(const T* __restrict__ src,
+                                          T* __restrict__ dst, long long n,
+                                          long long tid, long long nthreads) {
+  constexpr int V = 16 / sizeof(T);
+  const long long to_aligned =
+      ((16 - (reinterpret_cast<uintptr_t>(dst) & 15)) & 15) / sizeof(T);
+  const long long head = to_aligned < n ? to_aligned : n;
+  const long long nvec = (n - head) / V;
+  const long long body_end = head + nvec * V;
+  const long long scalars = head + (n - body_end);
+  for (long long i = tid; i < scalars; i += nthreads) {
+    const long long e = i < head ? i : body_end + (i - head);
+    dst[e] = Op::one(src[e]);
+  }
+  if (nvec == 0) return;
+  uint4* dv = reinterpret_cast<uint4*>(dst + head);
+  const uintptr_t sb = reinterpret_cast<uintptr_t>(src + head);
+  const int m = static_cast<int>(sb & 15);
+  const uint4* sv = reinterpret_cast<const uint4*>(sb - m);
+  for (long long base = tid; base < nvec; base += MAP_UNROLL * nthreads) {
+    uint4 v[MAP_UNROLL];
+#pragma unroll
+    for (int k = 0; k < MAP_UNROLL; ++k) {
+      const long long u = base + k * nthreads;
+      if (u < nvec) v[k] = m ? shifted(sv[u], sv[u + 1], m) : sv[u];
+    }
+#pragma unroll
+    for (int k = 0; k < MAP_UNROLL; ++k) {
+      const long long u = base + k * nthreads;
+      if (u < nvec) dv[u] = Op::vec(v[k]);
+    }
+  }
+}
+
+struct Copy {
+  template <typename T>
+  static __device__ __forceinline__ T one(T v) { return v; }
+  static __device__ __forceinline__ uint4 vec(uint4 v) { return v; }
+};
+
+// int16 max(x + 3, x - 2), wrapping as int16 does
+struct AddSubMax {
+  static __device__ __forceinline__ int16_t one(int16_t v) {
+    const int16_t a = static_cast<int16_t>(v + 3);
+    const int16_t b = static_cast<int16_t>(v - 2);
+    return a > b ? a : b;
+  }
+  static __device__ __forceinline__ unsigned word(unsigned w) {
+    return __vmaxs2(__vadd2(w, 0x00030003u), __vsub2(w, 0x00020002u));
+  }
+  static __device__ __forceinline__ uint4 vec(uint4 v) {
+    return make_uint4(word(v.x), word(v.y), word(v.z), word(v.w));
+  }
+};
+
+__device__ __forceinline__ long long grid_tid() {
+  return static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+}
+
+__device__ __forceinline__ long long grid_threads() {
+  return static_cast<long long>(gridDim.x) * blockDim.x;
+}
+
 // ---- exp_dynamic_sublane: out[0, :] = t[j, :] with j read on the device.
 // The index is normalised as the JAX kernel's ref slice does it in
 // interpret mode: a negative j counts from the end, then the start is
@@ -53,10 +159,8 @@ __global__ void dynamic_sublane_kernel(const int* __restrict__ idx,
   int j = idx[0];
   if (j < 0) j += R;
   j = min(max(j, 0), R - 1);
-  const int* row = t + static_cast<size_t>(j) * W;
-  for (int c = blockIdx.x * blockDim.x + threadIdx.x; c < W;
-       c += gridDim.x * blockDim.x)
-    out[c] = row[c];
+  map_range<int, Copy>(t + static_cast<long long>(j) * W, out, W,
+                       grid_tid(), grid_threads());
 }
 
 // ---- exp_int16_loop: `steps` steps of
@@ -319,39 +423,58 @@ __global__ void swprobe_kernel(const int* __restrict__ x, int S, int W,
   if (r == 0 && live) out[col] = cmax[c];
 }
 
-// ---- mosaic_int16_repro: int16 max(x + 3, x - 2), two lanes a thread.
-__global__ void int16_elementwise_kernel(const unsigned* __restrict__ x2,
-                                         const int16_t* __restrict__ x, int n,
-                                         unsigned* __restrict__ o2,
-                                         int16_t* __restrict__ o) {
-  const int pairs = n >> 1;
-  for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < pairs;
-       p += gridDim.x * blockDim.x) {
-    const unsigned v = x2[p];
-    o2[p] = __vmaxs2(__vadd2(v, 0x00030003u), __vsub2(v, 0x00020002u));
-  }
-  if ((n & 1) && blockIdx.x == 0 && threadIdx.x == 0) {
-    const int16_t v = x[n - 1];
-    const int16_t a = static_cast<int16_t>(v + 3);
-    const int16_t b = static_cast<int16_t>(v - 2);
-    o[n - 1] = a > b ? a : b;
-  }
+// ---- mosaic_int16_repro: int16 max(x + 3, x - 2), 8 lanes a thread.
+__global__ void int16_elementwise_kernel(const int16_t* __restrict__ x,
+                                         long long n,
+                                         int16_t* __restrict__ out) {
+  map_range<int16_t, AddSubMax>(x, out, n, grid_tid(), grid_threads());
 }
 
-// ---- mosaic_int16_repro: int16 roll(x, 1, axis 0), through shared memory
-// as the loops above exchange a step.
+// ---- mosaic_int16_repro: int16 roll(x, 1, axis 0) of x [S, W]: row r
+// takes row r - 1 and row 0 the last, as two contiguous ranges.
 __global__ void int16_roll_kernel(const int16_t* __restrict__ x, int S, int W,
                                   int16_t* __restrict__ out) {
-  extern __shared__ int16_t sh_roll[];
-  const int nt = blockDim.x;
-  const int tid = threadIdx.x;
-  const int r = tid % S;
-  const int col = blockIdx.x * (nt / S) + tid / S;
-  const bool live = col < W;
-  const size_t at = static_cast<size_t>(r) * W + col;
-  sh_roll[tid] = live ? x[at] : 0;
-  __syncthreads();
-  if (live) out[at] = sh_roll[r == 0 ? tid + S - 1 : tid - 1];
+  const long long tid = grid_tid(), nt = grid_threads();
+  const long long rest = static_cast<long long>(S - 1) * W;
+  map_range<int16_t, Copy>(x, out + W, rest, tid, nt);
+  map_range<int16_t, Copy>(x + rest, out, W, tid, nt);
+}
+
+// makes `device` current for a launch and gives the caller's back after
+struct OnDevice {
+  int prev = -1;
+  explicit OnDevice(int device) {
+    int cur = device;
+    cudaGetDevice(&cur);
+    if (cur != device) {
+      prev = cur;
+      cudaSetDevice(device);
+    }
+  }
+  ~OnDevice() {
+    if (prev >= 0) cudaSetDevice(prev);
+  }
+};
+
+// blocks of MAP_THREADS for a map over `bytes` bytes on `device`: enough
+// for each thread's first MAP_UNROLL vectors, at most MAP_BLOCKS_PER_SM an
+// SM. The SM count is queried once a device (kept for the first 64) and
+// the query's error returned.
+cudaError_t map_blocks(long long bytes, int device, int* blocks) {
+  static int known[64];
+  const bool keep = device >= 0 && device < 64;
+  int sms = keep ? known[device] : 0;
+  if (sms == 0) {
+    const cudaError_t err =
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    if (keep) known[device] = sms;
+  }
+  const long long per_block = 16LL * MAP_THREADS * MAP_UNROLL;
+  const long long need = (bytes + per_block - 1) / per_block;
+  const long long cap = static_cast<long long>(MAP_BLOCKS_PER_SM) * sms;
+  *blocks = static_cast<int>(std::max(1LL, std::min(need, cap)));
+  return cudaSuccess;
 }
 
 // columns a block holds: S x cols threads, at most 1024
@@ -360,8 +483,9 @@ int block_cols(int S) { return std::max(1, std::min(4, 1024 / S)); }
 int grid_for(int groups, int cols) { return (groups + cols - 1) / cols; }
 
 int loop(const void* x, int S, int W, int steps, int lanes, int dpx,
-         void* out, void* stream) {
+         void* out, int device, void* stream) {
   if (S <= 0 || W <= 0) return 0;
+  OnDevice on(device);
   const int cols = block_cols(S);
   const int nt = S * cols;
   const size_t smem = 2 * static_cast<size_t>(nt) * sizeof(unsigned);
@@ -380,46 +504,53 @@ int loop(const void* x, int S, int W, int steps, int lanes, int dpx,
 
 extern "C" {
 
+// Every entry takes the index of the device that holds its tensors and
+// launches there on `stream`, which must belong to it; it returns the
+// launch's cudaError.
 int probe_dynamic_sublane(const void* idx, const void* t, int R, int W,
-                          void* out, void* stream) {
+                          void* out, int device, void* stream) {
   if (R <= 0 || W <= 0) return 0;
-  const int threads = 256;
-  const int blocks = std::min((W + threads - 1) / threads, 1024);
-  dynamic_sublane_kernel<<<blocks, threads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
+  OnDevice on(device);
+  int blocks = 0;
+  if (cudaError_t err = map_blocks(4LL * W, device, &blocks))
+    return static_cast<int>(err);
+  auto st = static_cast<cudaStream_t>(stream);
+  dynamic_sublane_kernel<<<blocks, MAP_THREADS, 0, st>>>(
       static_cast<const int*>(idx), static_cast<const int*>(t), R, W,
       static_cast<int*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
 int probe_int16_loop(const void* x, int S, int W, int steps, void* out,
-                     void* stream) {
-  return loop(x, S, W, steps, 2, 0, out, stream);
+                     int device, void* stream) {
+  return loop(x, S, W, steps, 2, 0, out, device, stream);
 }
 
 // the yardsticks of the int16 loop: int32 lanes (lanes = 1), DPX forms
 int probe_loop_yardstick(const void* x, int S, int W, int steps, int lanes,
-                         int dpx, void* out, void* stream) {
-  return loop(x, S, W, steps, lanes, dpx, out, stream);
+                         int dpx, void* out, int device, void* stream) {
+  return loop(x, S, W, steps, lanes, dpx, out, device, stream);
 }
 
 int probe_int32_argmax(const void* x, int S, int W, int steps, void* out,
-                       void* amax, void* stream) {
+                       void* amax, int device, void* stream) {
   if (S <= 0 || W <= 0) return 0;
+  OnDevice on(device);
   const int cols = block_cols(S);
   const int nt = S * cols;
   const int parts = 2 * cols * (S / 32);
   const size_t smem = (2 * static_cast<size_t>(nt) + 3 * parts + cols) * 4;
-  int32_argmax_kernel<<<grid_for(W, cols), nt, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
+  auto st = static_cast<cudaStream_t>(stream);
+  int32_argmax_kernel<<<grid_for(W, cols), nt, smem, st>>>(
       static_cast<const int*>(x), S, W, steps, static_cast<int*>(out),
       static_cast<int*>(amax));
   return static_cast<int>(cudaGetLastError());
 }
 
 int probe_swprobe(const void* x, int S, int W, int nstep, int chunk,
-                  int level, void* out, void* stream) {
+                  int level, void* out, int device, void* stream) {
   if (S <= 0 || W <= 0) return 0;
+  OnDevice on(device);
   const int cols = block_cols(S);
   const int nt = S * cols;
   const size_t smem = (7 * static_cast<size_t>(nt) + cols) * sizeof(int);
@@ -437,24 +568,28 @@ int probe_swprobe(const void* x, int S, int W, int nstep, int chunk,
   return static_cast<int>(cudaGetLastError());
 }
 
-int probe_int16_elementwise(const void* x, int n, void* out, void* stream) {
+int probe_int16_elementwise(const void* x, long long n, void* out,
+                            int device, void* stream) {
   if (n <= 0) return 0;
-  const int threads = 256;
-  const int blocks =
-      std::max(1, std::min((n / 2 + threads - 1) / threads, 65535));
-  int16_elementwise_kernel<<<blocks, threads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const unsigned*>(x), static_cast<const int16_t*>(x), n,
-      static_cast<unsigned*>(out), static_cast<int16_t*>(out));
+  OnDevice on(device);
+  int blocks = 0;
+  if (cudaError_t err = map_blocks(2 * n, device, &blocks))
+    return static_cast<int>(err);
+  auto st = static_cast<cudaStream_t>(stream);
+  int16_elementwise_kernel<<<blocks, MAP_THREADS, 0, st>>>(
+      static_cast<const int16_t*>(x), n, static_cast<int16_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
-int probe_int16_roll(const void* x, int S, int W, void* out, void* stream) {
+int probe_int16_roll(const void* x, int S, int W, void* out, int device,
+                     void* stream) {
   if (S <= 0 || W <= 0) return 0;
-  const int cols = block_cols(S);
-  const int nt = S * cols;
-  int16_roll_kernel<<<grid_for(W, cols), nt, nt * sizeof(int16_t),
-                      static_cast<cudaStream_t>(stream)>>>(
+  OnDevice on(device);
+  int blocks = 0;
+  if (cudaError_t err = map_blocks(2LL * S * W, device, &blocks))
+    return static_cast<int>(err);
+  auto st = static_cast<cudaStream_t>(stream);
+  int16_roll_kernel<<<blocks, MAP_THREADS, 0, st>>>(
       static_cast<const int16_t*>(x), S, W, static_cast<int16_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -24,15 +24,27 @@ import ctypes
 
 import torch
 
+from .. import entry_device
+
 # kernel launches since the last reset, by csrc/probes.cu entry
 # (probe_<name>); chip_smoke.py reads them
 launches = dict.fromkeys(("dynamic_sublane", "int16_loop", "loop_yardstick",
                           "int32_argmax", "swprobe", "int16_elementwise",
                           "int16_roll"), 0)
 
-MAX_THREADS = 1024      # a block holds every row of its columns
+MAX_THREADS = 1024      # a block of the loops holds every row of its columns
+
+# each C entry's arguments before the device index and the stream: p a
+# pointer, i an int, q a 64-bit int
+_ARGS = {"dynamic_sublane": "ppiip", "int16_loop": "piiip",
+         "loop_yardstick": "piiiiip", "int32_argmax": "piiipp",
+         "swprobe": "piiiiip", "int16_elementwise": "pqp", "int16_roll": "piip"}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_longlong}
 
 _fns: dict = {}         # probe_<name> with its argtypes set
+_devices: dict = {}     # a device string -> its torch.device
+# device index -> PyTorch's current raw stream there (CUDA builds only)
+_stream = None
 
 
 def tensor_on(a, dtype: torch.dtype, device: torch.device,
@@ -45,8 +57,40 @@ def tensor_on(a, dtype: torch.dtype, device: torch.device,
     return t.to(device).contiguous()
 
 
+def inputs(entry: str, device, dtype: torch.dtype, *arrays):
+    """(index, tensors): the card a probe wrapper runs on (None on the
+    CPU) and `arrays` (numpy or tensors) as contiguous `dtype` tensors
+    there. Tensors that already are such, all on one card that `device`
+    names (any card for "cuda" with no index), go through untouched,
+    read by their attributes alone, and the kernel runs on their card,
+    whichever device is current; anything else is checked and converted
+    (`entry_device`, `tensor_on`), onto the current card for "cuda".
+    Raises TypeError on another dtype."""
+    index = None
+    for a in arrays:
+        if not (type(a) is torch.Tensor and a.is_cuda and a.dtype == dtype
+                and a.is_contiguous()):
+            break
+        i = a.get_device()
+        if index is None:
+            dev = device if type(device) is torch.device else \
+                _devices.get(device) or _devices.setdefault(
+                    device, torch.device(device))
+            if dev.type != "cuda" or dev.index not in (None, i):
+                break
+        elif i != index:
+            break
+        index = i
+    else:
+        return index, arrays
+    dev = entry_device(device, entry)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev.index, [tensor_on(a, dtype, dev, entry) for a in arrays]
+
+
 def check_rows(entry: str, x: torch.Tensor, multiple: int = 1) -> None:
-    """The kernels keep a column's rows in one block."""
+    """The loop kernels keep a column's rows in one block."""
     if x.dim() != 2:
         raise ValueError(f"{entry}: expected [S, W], got {tuple(x.shape)}")
     S = x.shape[0]
@@ -55,22 +99,26 @@ def check_rows(entry: str, x: torch.Tensor, multiple: int = 1) -> None:
                          f"{MAX_THREADS} rows, a multiple of {multiple}")
 
 
-def launch(name: str, dev: torch.device, *args) -> None:
-    """Launch csrc/probes.cu's `probe_<name>` on the current stream of
-    `dev`: tensors pass as pointers, Python ints as C ints. Raises on a
-    non-zero cudaError."""
-    fn = _fns.get(name)
-    if fn is None:
-        from ..ops import cuda_build
-        fn = getattr(cuda_build.load("probes"), f"probe_{name}")
-        fn.argtypes = [ctypes.c_void_p if torch.is_tensor(a) else
-                       ctypes.c_int for a in args] + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fns[name] = fn
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*[a.data_ptr() if torch.is_tensor(a) else a for a in args],
-                 stream)
+def _bind(name: str):
+    global _stream
+    from ..ops import cuda_build
+    fn = getattr(cuda_build.load("probes"), f"probe_{name}")
+    fn.argtypes = [_CTYPES[c] for c in _ARGS[name]] + [ctypes.c_int,
+                                                      ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _fns[name] = fn
+    _stream = torch._C._cuda_getCurrentRawStream
+    return fn
+
+
+def launch(name: str, index: int, *args) -> None:
+    """Launch csrc/probes.cu's `probe_<name>` on card `index` (the entry
+    makes it current for the launch and gives the caller's device back)
+    on PyTorch's current stream there. `args` are the entry's own, each
+    a pointer (`data_ptr()`) or an int. Raises on a non-zero
+    cudaError."""
+    fn = _fns.get(name) or _bind(name)
+    err = fn(*args, index, _stream(index))
     if err != 0:
         raise RuntimeError(f"probe_{name}: kernel launch failed "
                            f"(cudaError {err})")

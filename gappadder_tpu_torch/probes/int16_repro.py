@@ -4,9 +4,9 @@ Counterpart of scripts/mosaic_int16_repro.py, whose two Pallas kernels
 showed that int16 did not lower on the TPU toolchain: `elementwise`
 (int16 max(x + 3, x - 2), wrapping) and `roll` (roll(x, 1, axis 0): row
 r takes row r - 1, row 0 the last row). Here both are kernels of
-`csrc/probes.cu` (two int16 lanes a thread for the elementwise one; the
-roll through shared memory, as the SW-shaped loops exchange a step),
-each with its plain twin.
+`csrc/probes.cu` (16-byte vectors of 8 int16 a thread, whatever the
+input's alignment; the roll as two contiguous ranges, out[1:] = x[:-1]
+and out[0] = x[-1], so any number of rows), each with its plain twin.
 
     python -m gappadder_tpu_torch.probes.int16_repro
 """
@@ -16,8 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import entry_device
-from . import check_rows, launch, tensor_on
+from . import inputs, launch
 
 SHAPE = (32, 128)                       # the script's shape
 
@@ -36,33 +35,32 @@ def roll_plain(x: torch.Tensor):
 
 
 def elementwise(x=None, device="cuda"):
-    """int16 max(x + 3, x - 2) of x int16 [S, W] (default the script's
-    arange [32, 128]), any shape on the card."""
-    dev = entry_device(device, "int16_repro.elementwise")
-    x = tensor_on(script_input() if x is None else x, torch.int16, dev,
-                  "int16_repro.elementwise")
-    if dev.type == "cpu":
+    """int16 max(x + 3, x - 2) of x int16 (default the script's arange
+    [32, 128]), any shape; on the card the input may start at any
+    element of its storage."""
+    index, (x,) = inputs("int16_repro.elementwise", device, torch.int16,
+                         script_input() if x is None else x)
+    if index is None:
         return elementwise_plain(x)
-    if x.data_ptr() % 4:                # two int16 lanes a 32-bit word
-        x = x.clone()
-    if x.numel() >= 1 << 31:
-        raise ValueError("int16_repro.elementwise: too many elements")
     out = torch.empty_like(x)
-    launch("int16_elementwise", dev, x, x.numel(), out)
+    launch("int16_elementwise", index, x.data_ptr(), x.numel(),
+           out.data_ptr())
     return out
 
 
 def roll(x=None, device="cuda"):
     """roll(x, 1, axis 0) of x int16 [S, W] (default the script's
-    arange [32, 128]); at most 1024 rows on the card."""
-    dev = entry_device(device, "int16_repro.roll")
-    x = tensor_on(script_input() if x is None else x, torch.int16, dev,
-                  "int16_repro.roll")
-    check_rows("int16_repro.roll", x)
-    if dev.type == "cpu":
+    arange [32, 128]), any number of rows and any width."""
+    index, (x,) = inputs("int16_repro.roll", device, torch.int16,
+                         script_input() if x is None else x)
+    if x.dim() != 2:
+        raise ValueError(f"int16_repro.roll: expected [S, W], got "
+                         f"{tuple(x.shape)}")
+    if index is None:
         return roll_plain(x)
     out = torch.empty_like(x)
-    launch("int16_roll", dev, x, x.shape[0], x.shape[1], out)
+    launch("int16_roll", index, x.data_ptr(), x.shape[0], x.shape[1],
+           out.data_ptr())
     return out
 
 

@@ -25,8 +25,7 @@ import time
 import numpy as np
 import torch
 
-from .. import entry_device
-from . import check_rows, cuda_ms, launch, tensor_on
+from . import check_rows, cuda_ms, inputs, launch
 
 S, TB, STEPS = 128, 128, 1024           # the script's shapes
 SUBLANE_ROW = 17
@@ -52,18 +51,17 @@ def exp_dynamic_sublane_plain(t: torch.Tensor, idx: torch.Tensor):
 def exp_dynamic_sublane(t=None, idx=SUBLANE_ROW, device="cuda"):
     """t int32 [R, W] (default the script's [64, 128] arange), idx an int
     or int32 [1, 1] (default 17). Returns int32 [1, W] on `device`."""
-    dev = entry_device(device, "exp_dynamic_sublane")
-    t = tensor_on(script_table() if t is None else t, torch.int32, dev,
-                  "exp_dynamic_sublane")
     if isinstance(idx, int):
         idx = np.array([[idx]], np.int32)
-    idx = tensor_on(idx, torch.int32, dev, "exp_dynamic_sublane")
+    index, (t, idx) = inputs("exp_dynamic_sublane", device, torch.int32,
+                             script_table() if t is None else t, idx)
     if t.dim() != 2 or idx.numel() != 1:
         raise ValueError("exp_dynamic_sublane: expected t [R, W], idx [1, 1]")
-    if dev.type == "cpu":
+    if index is None:
         return exp_dynamic_sublane_plain(t, idx)
-    out = torch.empty((1, t.shape[1]), dtype=torch.int32, device=dev)
-    launch("dynamic_sublane", dev, idx, t, t.shape[0], t.shape[1], out)
+    out = t.new_empty((1, t.shape[1]))
+    launch("dynamic_sublane", index, idx.data_ptr(), t.data_ptr(),
+           t.shape[0], t.shape[1], out.data_ptr())
     return out
 
 
@@ -81,24 +79,24 @@ def exp_int16_loop_plain(x: torch.Tensor, steps: int = STEPS):
     return h.to(torch.int32)
 
 
-def _loop_input(entry, x, dev):
-    x = tensor_on(np.zeros((S, TB), np.int32) if x is None else x,
-                  torch.int32, dev, entry)
+def _loop_input(entry, x, device):
+    index, (x,) = inputs(entry, device, torch.int32,
+                         np.zeros((S, TB), np.int32) if x is None else x)
     check_rows(entry, x)
-    return x
+    return index, x
 
 
 def exp_int16_loop(x=None, steps: int = STEPS, device="cuda"):
     """x int32 [S, W] (default the script's zeros [128, 128]), W even on
     the card (two int16 columns a thread). Returns int32 [S, W]."""
-    dev = entry_device(device, "exp_int16_loop")
-    x = _loop_input("exp_int16_loop", x, dev)
-    if dev.type == "cpu":
+    index, x = _loop_input("exp_int16_loop", x, device)
+    if index is None:
         return exp_int16_loop_plain(x, steps)
     if x.shape[1] % 2:
         raise ValueError("exp_int16_loop: the kernel takes an even width")
     out = torch.empty_like(x)
-    launch("int16_loop", dev, x, x.shape[0], x.shape[1], steps, out)
+    launch("int16_loop", index, x.data_ptr(), x.shape[0], x.shape[1], steps,
+           out.data_ptr())
     return out
 
 
@@ -117,8 +115,8 @@ def recurrence_yardstick(x: torch.Tensor, steps: int = STEPS,
                          f"{x.shape[1]}")
     x = x.contiguous()
     out = torch.empty_like(x)
-    launch("loop_yardstick", x.device, x, x.shape[0], x.shape[1], steps,
-           lanes, int(dpx), out)
+    launch("loop_yardstick", x.get_device(), x.data_ptr(), x.shape[0],
+           x.shape[1], steps, lanes, int(dpx), out.data_ptr())
     return out
 
 
@@ -144,16 +142,16 @@ def exp_int32_loop_with_argmax(x=None, steps: int = STEPS, device="cuda"):
     """x int32 [S, W] (default the script's zeros [128, 128]); on the card
     S is a multiple of 32 (a warp reduces 32 rows of one column).
     Returns (out int32 [S, W], argmax int32 [W])."""
-    dev = entry_device(device, "exp_int32_loop_with_argmax")
-    x = _loop_input("exp_int32_loop_with_argmax", x, dev)
+    index, x = _loop_input("exp_int32_loop_with_argmax", x, device)
     if steps < 1:
         raise ValueError("exp_int32_loop_with_argmax: steps >= 1")
-    if dev.type == "cpu":
+    if index is None:
         return exp_int32_loop_with_argmax_plain(x, steps)
     check_rows("exp_int32_loop_with_argmax", x, multiple=32)
     out = torch.empty_like(x)
-    am = torch.empty(x.shape[1], dtype=torch.int32, device=dev)
-    launch("int32_argmax", dev, x, x.shape[0], x.shape[1], steps, out, am)
+    am = x.new_empty(x.shape[1])
+    launch("int32_argmax", index, x.data_ptr(), x.shape[0], x.shape[1],
+           steps, out.data_ptr(), am.data_ptr())
     return out, am
 
 

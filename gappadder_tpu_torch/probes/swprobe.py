@@ -26,8 +26,7 @@ import sys
 import numpy as np
 import torch
 
-from .. import entry_device
-from . import check_rows, cuda_ms, launch, tensor_on
+from . import check_rows, cuda_ms, inputs, launch
 
 S, TB, NBT, NSTEP = 136, 128, 4, 1152       # the script's shapes
 GRID_STEPS = 8
@@ -76,17 +75,16 @@ def run_plain(x: torch.Tensor, level: int, nstep: int = NSTEP):
 def run(x=None, level: int = 3, nstep: int = NSTEP, device="cuda"):
     """x int32 [S, W] (default the script's [136, 512]); `nstep` a
     multiple of the 8 grid steps. Returns int32 [1, W] on `device`."""
-    dev = entry_device(device, "swprobe.run")
-    x = tensor_on(script_input() if x is None else x, torch.int32, dev,
-                  "swprobe.run")
+    index, (x,) = inputs("swprobe.run", device, torch.int32,
+                         script_input() if x is None else x)
     check_rows("swprobe.run", x)
     if level not in LEVELS or nstep % GRID_STEPS:
         raise ValueError(f"swprobe.run: level {level}, nstep {nstep}")
-    if dev.type == "cpu":
+    if index is None:
         return run_plain(x, level, nstep)
-    out = torch.empty((1, x.shape[1]), dtype=torch.int32, device=dev)
-    launch("swprobe", dev, x, x.shape[0], x.shape[1], nstep,
-           nstep // GRID_STEPS, level, out)
+    out = x.new_empty((1, x.shape[1]))
+    launch("swprobe", index, x.data_ptr(), x.shape[0], x.shape[1], nstep,
+           nstep // GRID_STEPS, level, out.data_ptr())
     return out
 
 

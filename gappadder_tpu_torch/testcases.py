@@ -263,6 +263,168 @@ def driver_workspace(root, args, rowtab, hold_back=(), step: int = 4):
     return ws, rec, readsets, fills, held
 
 
+# the driver's open-gap scenario: one scaffold of 3000 bp with a 600 bp
+# gap in its middle, 300 read pairs of 100 bp (insert 300 +- 30), the
+# both-unmapped pairs cut to those left of the gap's middle, so that
+# rescue and round 2 run and cannot close it and the relaxed final
+# pick's extension does. Error-free reads leave HQ nothing to build
+# (every read lies whole in a contig); with 0.1 % of the read bases
+# substituted, the contigs break at the errors and HQ turns the
+# flank-anchored reads clipped on two of them into pseudo-contigs
+OPEN_GAP = dict(gap_len=600, L=3000, n_pairs=300)
+OPEN_GAP_READ_ERRORS = 0.001
+
+
+def _simulate_pairs(truth: str, gap_spans, n_pairs: int, rng,
+                    read_len: int = 100, insert: int = 300, std: int = 30,
+                    err_rate: float = 0.0):
+    """FR read pairs sampled from `truth` and the BAM records a mapper
+    leaves against the draft (the truth with `gap_spans` as Ns): a read
+    over a gap edge soft-clipped on the gap side (unmapped below
+    MIN_ANCHOR bases), a read inside a gap unmapped at its mate's place,
+    a pair inside a gap unplaced (flag 12). Draws from `rng` in
+    tests/read_simulator.py's order, so one seed gives its files.
+    Returns (records, left FASTQ entries, right FASTQ entries)."""
+    from . import dna
+    gs, ge = (np.array(v, dtype=np.int64) for v in zip(*sorted(gap_spans)))
+
+    def align(a):
+        """(pos, CIGAR) of the read at a, or None where it is unmapped."""
+        mapped, pos, lclip, rclip = _place(a, read_len, gs, ge)
+        if not mapped:
+            return None
+        clip = [("S", int(lclip))] if lclip else []
+        return int(pos), clip + [("M", int(read_len - lclip - rclip))] + (
+            [("S", int(rclip))] if rclip else [])
+
+    def mutate(seq):
+        if err_rate <= 0:
+            return seq
+        arr = dna.encode(seq).copy()
+        for p in np.nonzero(rng.random(len(arr)) < err_rate)[0]:
+            arr[p] = (arr[p] + rng.integers(1, 4)) % 4
+        return dna.decode(arr)
+
+    T = dna.encode(truth)
+    L = len(T)
+    recs, left, right = [], [], []
+    for i in range(n_pairs):
+        ins = int(np.clip(rng.normal(insert, std), 2 * read_len + 2, L - 2))
+        p = int(rng.integers(0, L - ins))
+        a1, a2 = p, p + ins - read_len
+        seq1 = mutate(dna.decode(T[a1:a1 + read_len]))
+        seq2 = mutate(dna.decode(dna.revcomp(T[a2:a2 + read_len])))
+        name = f"p{i}"
+        left.append((name + "/1", seq1))
+        right.append((name + "/2", seq2))
+        m1, m2 = align(a1), align(a2)
+        flag1, flag2 = 0x1 | 0x40 | 0x20, 0x1 | 0x80 | 0x10
+        if m1 is None:
+            flag1 |= 0x4
+            flag2 |= 0x8
+        if m2 is None:
+            flag2 |= 0x4
+            flag1 |= 0x8
+        pos1 = m1[0] if m1 else (m2[0] if m2 else None)
+        pos2 = m2[0] if m2 else (m1[0] if m1 else None)
+        if pos1 is None:
+            for fl, sq in ((flag1, seq1), (flag2, seq2)):
+                recs.append(dict(name=name, flag=fl, tid=-1, pos=-1, mapq=0,
+                                 cigar=[], mtid=-1, mpos=-1, tlen=0, seq=sq))
+            continue
+        recs.append(dict(name=name, flag=flag1, tid=0, pos=pos1,
+                         mapq=60 if m1 else 0, cigar=m1[1] if m1 else [],
+                         mtid=0, mpos=pos2, tlen=ins, seq=seq1))
+        recs.append(dict(name=name, flag=flag2, tid=0, pos=pos2,
+                         mapq=60 if m2 else 0, cigar=m2[1] if m2 else [],
+                         mtid=0, mpos=pos1, tlen=-ins, seq=seq2))
+    recs.sort(key=lambda r: r["pos"])
+    return recs, left, right
+
+
+def gap_scenario(root, seed: int = 0, gap_len: int = 150, L: int = 2400,
+                 n_pairs: int = 500, err_rate: float = 0.0):
+    """tests/test_end_to_end.py's one-gap scenario written with the port
+    alone: a scaffold of L seeded bases with a gap of `gap_len` Ns in
+    its middle (draft.fa), one paired library (lib.bam, lib_1.fastq,
+    lib_2.fastq) and its Config, its working folder `root`/work. Numpy's
+    generator at `seed` draws what that test's `rng` fixture draws, so
+    the files are the ones it writes. Returns (cfg, truth, (gs, ge))."""
+    import os
+    from .config import Config, Library, TpuParams
+    from .io import bam as bam_io
+    from .io import fasta as fasta_io
+    rng = np.random.default_rng(seed)
+    os.makedirs(root, exist_ok=True)
+    truth = "".join(np.array(list("ACGT"))[rng.integers(0, 4, L)])
+    gs = L // 2 - gap_len // 2
+    ge = gs + gap_len
+    draft_path = os.path.join(root, "draft.fa")
+    fasta_io.write_fasta(draft_path,
+                         [("scaf0", truth[:gs] + "N" * gap_len + truth[ge:])])
+    recs, left, right = _simulate_pairs(truth, [(gs, ge)], n_pairs, rng,
+                                        err_rate=err_rate)
+    bam = os.path.join(root, "lib.bam")
+    bam_io.write_bam(bam, [("scaf0", L)], recs)
+    fqs = [os.path.join(root, f"lib_{m}.fastq") for m in (1, 2)]
+    for path, entries in zip(fqs, (left, right)):
+        with open(path, "w") as fh:
+            for name, seq in entries:
+                fh.write(f"@{name}\n{seq}\n+\n{'I' * len(seq)}\n")
+    cfg = Config(
+        draft_genome=draft_path, min_gap_size=50, flank_length=150,
+        working_folder=os.path.join(root, "work"), kmers=((25, 21), (31, 27)),
+        min_kmer_count=0,
+        libraries=(Library(bam=bam, insert_size=300, std=30, left_fq=fqs[0],
+                           right_fq=fqs[1]),),
+        tpu=TpuParams(read_batch=1 << 12, use_pallas=False))
+    return cfg, truth, (gs, ge)
+
+
+def keep_left_pairs(ws, readsets, truth: str, upto: int) -> int:
+    """Keep in the workspace's both_unmapped.npz only the pairs whose
+    two reads both end at or before truth position `upto` (each read
+    placed by exact search on either strand). Returns the entries
+    kept."""
+    from . import dna
+    rc = dna.decode(dna.revcomp(dna.encode(truth)))
+
+    def end(li, side, row):
+        r = dna.decode(readsets[li][side].get_seq(row))
+        p = truth.find(r)
+        if p < 0:
+            p = len(truth) - rc.find(r) - len(r)
+        return p + len(r)
+
+    bu = ws.load_arrays("both_unmapped")
+    keep = np.array([max(end(li, 0, row), end(li, 1, row)) <= upto
+                     for li, row in zip(bu["lib"], bu["row"])], bool)
+    ws.save_arrays("both_unmapped", **{k: v[keep] for k, v in bu.items()})
+    return int(keep.sum())
+
+
+def open_gap_workspace(root, seed: int = 0, err_rate: float = 0.0,
+                       device="cpu"):
+    """The open-gap driver scenario (OPEN_GAP, reads substituted at
+    `err_rate`) through the port's Preprocess and Collect on `device`,
+    its both-unmapped pairs cut to those left of the gap's middle: the
+    workspace the Assembly stage starts from (recruits.npz and the
+    FASTQs, as `-c Assembly` does). Returns (cfg, Workspace, truth,
+    (gs, ge), pairs kept)."""
+    from .io import fasta as fasta_io
+    from .pipeline import collect, preprocess
+    from .pipeline.workspace import Workspace
+    cfg, truth, (gs, ge) = gap_scenario(root, seed, err_rate=err_rate,
+                                        **OPEN_GAP)
+    ws = Workspace(cfg.workdir)
+    genome = fasta_io.read_fasta(cfg.draft_genome)
+    preprocess.run_preprocess(cfg, ws, genome=genome, device=device)
+    _rec, readsets = collect.run_collect(cfg, ws, genome=genome,
+                                         device=device)
+    kept = keep_left_pairs(ws, readsets, truth, (gs + ge) // 2)
+    return cfg, ws, truth, (gs, ge), kept
+
+
 # Collect's chip scenario: E. coli K-12 MG1655's size (4.64 Mbp) as 8
 # scaffolds of 575 kb with 8 gaps each (100-400 bp), and the reference's
 # two libraries (its configuration.json): paired ends of 300 +- 50 at

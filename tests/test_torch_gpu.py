@@ -439,3 +439,75 @@ def test_probe_kernels_refuse_shapes_they_do_not_take(cuda):
     with pytest.raises(TypeError):
         int16_repro.roll(torch.zeros((4, 4), dtype=torch.int32), device=cuda)
     assert probes.launches == before
+
+
+def _offset_view(x: torch.Tensor, offset: int) -> torch.Tensor:
+    """`x`'s values in a view `offset` elements into a larger storage."""
+    buf = torch.full((x.numel() + offset + 8,), -3, dtype=x.dtype,
+                     device=x.device)
+    v = buf[offset:offset + x.numel()].view(x.shape)
+    v.copy_(x)
+    return v
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(9, 37), (5, 1), (6, 2051)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_probe_dynamic_sublane_takes_any_width(cuda, shape):
+    """Rows off the 16-byte vector (widths no multiple of 4), clamped
+    rows."""
+    t = torch.from_numpy(probe_input("beyond_int16", shape, 3)).to(cuda)
+    for j in (0, 1, 2, 3, shape[0], -1, -shape[0] - 2):
+        idx = torch.tensor([[j]], dtype=torch.int32, device=cuda)
+        _same_and_counted("dynamic_sublane",
+                          lambda: ke.exp_dynamic_sublane(t, idx, device=cuda),
+                          lambda: ke.exp_dynamic_sublane_plain(t, idx))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["elementwise", "roll"])
+@pytest.mark.parametrize("shape", [(1, 7), (1025, 33), (3000, 4097)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_probe_int16_repro_takes_any_rows_and_start(cuda, kernel, shape):
+    """One row and more than 1024, odd widths, and inputs that start 2
+    and 14 bytes into their storage (the funnel-shifted loads)."""
+    x = torch.from_numpy(probe_input("int16_full", shape, 6)).to(cuda)
+    for view in (x, _offset_view(x, 1), _offset_view(x, 7)):
+        assert view.is_contiguous()
+        _same_and_counted(
+            f"int16_{kernel}",
+            lambda: getattr(int16_repro, kernel)(view, device=cuda),
+            lambda: getattr(int16_repro, f"{kernel}_plain")(view))
+
+
+@pytest.mark.gpu
+def test_probe_int16_repro_takes_a_strided_view(cuda):
+    wide = torch.from_numpy(probe_input("int16_full", (40, 66), 8)).to(cuda)
+    x = wide[:, ::2]
+    for kernel in ("elementwise", "roll"):
+        _same_and_counted(
+            f"int16_{kernel}",
+            lambda: getattr(int16_repro, kernel)(x, device=cuda),
+            lambda: getattr(int16_repro, f"{kernel}_plain")(x.contiguous()))
+
+
+@pytest.mark.gpu
+def test_probe_launches_on_the_tensors_card_while_another_is_current(cuda):
+    """A tensor on cuda:0 while cuda:1 is current: the kernel runs on
+    cuda:0, on its current stream, and cuda:1 is current again after."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    x = torch.from_numpy(probe_input("int16_full", (33, 70), 9)).to("cuda:0")
+    t = torch.from_numpy(probe_input("beyond_int16", (9, 37), 3)).to("cuda:0")
+    idx = torch.tensor([[4]], dtype=torch.int32, device="cuda:0")
+    with torch.cuda.device(1):
+        for dev in ("cuda", torch.device("cuda", 0)):
+            out = int16_repro.roll(x, device=dev)
+            assert out.device == x.device
+            assert torch.cuda.current_device() == 1
+            row = ke.exp_dynamic_sublane(t, idx, device=dev)
+            assert row.device == t.device
+            assert torch.cuda.current_device() == 1
+    torch.cuda.synchronize(0)
+    assert torch.equal(out, int16_repro.roll_plain(x))
+    assert torch.equal(row, ke.exp_dynamic_sublane_plain(t, idx))

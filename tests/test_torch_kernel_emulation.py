@@ -1,4 +1,4 @@
-"""The CUDA sources of the sort and SW kernels, run on the CPU.
+"""The CUDA sources of the sort, SW and probe kernels, run on the CPU.
 
 A card is the only place the kernels run for real (tests/test_torch_gpu.py
 holds them to their plain versions there). This file checks the kernels'
@@ -22,14 +22,19 @@ import numpy as np
 import pytest
 import torch
 
+from gappadder_tpu_torch import probes
 from gappadder_tpu_torch.ops import cuda_build, psort, sw_cuda
 from gappadder_tpu_torch.ops.sw_host import BWA_PARAMS, SWParams
+from gappadder_tpu_torch.probes import int16_repro
+from gappadder_tpu_torch.probes import kernel_experiments as ke
 from gappadder_tpu_torch.testcases import (SW_EDGE_SHAPES, SW_STRIP_SHAPES,
-                                           sort_case, sw_edge_pairs,
-                                           sw_strip_pairs, sw_test_pairs)
+                                           probe_input, sort_case,
+                                           sw_edge_pairs, sw_strip_pairs,
+                                           sw_test_pairs)
 
 EMULATION = r"""
 #pragma once
+#include <atomic>
 #include <barrier>
 #include <climits>
 #include <cstdint>
@@ -55,8 +60,19 @@ inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline cudaError_t cudaFuncSetAttribute(const void*, cudaFuncAttribute, int) {
   return cudaSuccess;
 }
-inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
+// the current device: set by cudaSetDevice, which counts its calls
+inline int emu_device = 0, emu_device_sets = 0;
+extern "C" int emu_get_device() { return emu_device; }
+extern "C" int emu_set_device_calls() { return emu_device_sets; }
+inline cudaError_t cudaGetDevice(int* d) { *d = emu_device; return cudaSuccess; }
+inline cudaError_t cudaSetDevice(int d) {
+  emu_device = d;
+  ++emu_device_sets;
+  return cudaSuccess;
+}
+// emu_set_sms(0) makes the SM count's query fail
 inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  if (emu_sms <= 0) return cudaErrorInvalidValue;
   *v = emu_sms;
   return cudaSuccess;
 }
@@ -137,14 +153,67 @@ inline unsigned __ballot_sync(unsigned, bool p) {
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
+struct uint4 { unsigned x, y, z, w; };
+struct int4 { int x, y, z, w; };
+inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) {
+  return {x, y, z, w};
+}
+inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned s) {
+  return (unsigned)((((uint64_t)hi << 32) | lo) >> (s & 31));
+}
+// the int16x2 SIMD intrinsics: each halfword on its own, wrapping
+template <class F> unsigned emu_halves(unsigned a, unsigned b, F f) {
+  unsigned r = 0;
+  for (int h = 0; h < 2; ++h) {
+    const int16_t x = (int16_t)(a >> (16 * h)), y = (int16_t)(b >> (16 * h));
+    r |= ((unsigned)(uint16_t)f(x, y)) << (16 * h);
+  }
+  return r;
+}
+inline unsigned __vadd2(unsigned a, unsigned b) {
+  return emu_halves(a, b, [](int x, int y) { return x + y; });
+}
+inline unsigned __vsub2(unsigned a, unsigned b) {
+  return emu_halves(a, b, [](int x, int y) { return x - y; });
+}
+inline unsigned __vmaxs2(unsigned a, unsigned b) {
+  return emu_halves(a, b, [](int x, int y) { return x > y ? x : y; });
+}
+inline unsigned __viaddmax_s16x2(unsigned a, unsigned b, unsigned c) {
+  return __vmaxs2(__vadd2(a, b), c);
+}
+inline int __viaddmax_s32(int a, int b, int c) {
+  const int s = (int)((unsigned)a + (unsigned)b);
+  return s > c ? s : c;
+}
+inline float __int2float_rn(int v) { return (float)v; }
+// a 16-byte vector access needs a 16-byte aligned address on a card
+// (x86 forgives it): every cast to a vector pointer is counted if not
+inline std::atomic<int> emu_misaligned{0};
+extern "C" int emu_misaligned_vectors() { return emu_misaligned.load(); }
+namespace emu {
+template <class P, class Q> P vector_cast(Q q) {
+  if (reinterpret_cast<uintptr_t>(q) % 16) ++emu_misaligned;
+  return reinterpret_cast<P>(q);
+}
+}  // namespace emu
+inline int atomicMax(int* p, int v) {
+  std::atomic_ref<int> r(*p);
+  int old = r.load();
+  while (old < v && !r.compare_exchange_weak(old, v)) {}
+  return old;
+}
 """
 
 
 def _translate(src: str) -> str:
     """A kernel source as C++ for the emulation: the header in place of
-    cuda_runtime.h, dynamic shared memory from the block's buffer, and
-    every <<<grid, block, smem, stream>>> launch as a call."""
+    cuda_runtime.h, dynamic shared memory from the block's buffer, casts
+    to 16-byte vector pointers checked for alignment, and every
+    <<<grid, block, smem, stream>>> launch as a call."""
     src = src.replace("#include <cuda_runtime.h>", '#include "emulation.h"')
+    src = re.sub(r"reinterpret_cast<((?:const )?u?int4\*)>\(",
+                 r"emu::vector_cast<\1>(", src)
     src = re.sub(r"extern __shared__ (\w[\w ]*?) (\w+)\[\];",
                  r"\1* \2 = reinterpret_cast<\1*>(emu::dyn_smem());", src)
     return re.sub(r"([\w:]+(?:<[^;()]*?>)?)\s*<<<([^>]*)>>>\(",
@@ -320,3 +389,123 @@ def test_emulated_sw_kernel_in_strips(emulated, shape, mode):
     params = BWA_PARAMS if Lq % 2 else SWParams(2, -3, 5, 2)
     for slack in ((2, 1100) if mode == "overlap" else (0,)):
         _check_sw(lib, (q, ql, t, tl), params, mode, slack)
+
+
+def _probe_entry(lib, name, *args, device=0):
+    """csrc/probes.cu's `probe_<name>` with the argument types the
+    wrapper binds it with (`probes._ARGS`), on CPU buffers, on emulated
+    device `device`."""
+    fn = getattr(lib, f"probe_{name}")
+    fn.argtypes = [probes._CTYPES[c] for c in probes._ARGS[name]] + [
+        ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    assert fn(*args, device, None) == 0
+    assert lib.emu_misaligned_vectors() == 0
+
+
+def _at(values: torch.Tensor, offset: int) -> torch.Tensor:
+    """`values` copied into a buffer `offset` elements into its storage
+    (a start off the 16-byte vector), the bytes around it garbage."""
+    buf = torch.full((values.numel() + offset + 16,), -21555,
+                     dtype=values.dtype)
+    view = buf[offset:offset + values.numel()].view(values.shape)
+    view.copy_(values)
+    return view
+
+
+# (R, W, rows j): widths a multiple of the vector and not, so that row j
+# starts at every offset off the 16-byte vector; negative and
+# out-of-range rows clamp as the JAX kernel's slice does
+SUBLANE_RUNS = [((64, 128), (17, 0, 63, 64, 70, -1, -5, -70)),
+                ((9, 37), (0, 1, 2, 3, 8, -2)), ((5, 1), (0, 3, 9, -1)),
+                ((6, 2051), (1, 2, 3, 5)), ((3, 6), (0, 1, 2))]
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("shape,rows", SUBLANE_RUNS,
+                         ids=lambda v: "x".join(map(str, v)))
+def test_emulated_dynamic_sublane_matches_plain(emulated, shape, rows, sms):
+    """The row read through the 16-byte streaming map: rows at every
+    alignment, widths with scalar heads and tails, an output that starts
+    off the vector too."""
+    lib = emulated("probes", f"_sms{sms}")
+    lib.emu_set_sms(sms)
+    t = torch.from_numpy(probe_input("beyond_int16", shape, 3))
+    R, W = shape
+    for j in rows:
+        idx = torch.tensor([[j]], dtype=torch.int32)
+        want = ke.exp_dynamic_sublane_plain(t, idx)
+        for off in (0, 1, 3):
+            out = _at(torch.full((1, W), -7, dtype=torch.int32), off)
+            _probe_entry(lib, "dynamic_sublane", idx.data_ptr(),
+                         t.data_ptr(), R, W, out.data_ptr())
+            assert torch.equal(out, want), (j, off)
+
+
+# (S, W): one row, more than 1024, widths off the 8-lane vector
+INT16_SHAPES = [(32, 128), (1, 7), (1, 4097), (2, 3), (7, 33), (1025, 33),
+                (300, 5), (3000, 41)]
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("shape", INT16_SHAPES,
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_emulated_int16_roll_and_elementwise_match_plain(emulated, shape,
+                                                         sms):
+    """roll(x, 1, axis 0) and wrapping max(x + 3, x - 2) on inputs that
+    start at each of the 8 int16 offsets off the 16-byte vector: the
+    funnel-shifted loads, the scalar heads and tails, the roll's two
+    ranges."""
+    lib = emulated("probes", f"_sms{sms}")
+    lib.emu_set_sms(sms)
+    x = torch.from_numpy(probe_input("int16_full", shape, sum(shape)))
+    S, W = shape
+    for off in range(8):
+        xv = _at(x, off)
+        out = torch.full(shape, 77, dtype=torch.int16)
+        _probe_entry(lib, "int16_roll", xv.data_ptr(), S, W, out.data_ptr())
+        assert torch.equal(out, int16_repro.roll_plain(x)), off
+        out = torch.full(shape, 77, dtype=torch.int16)
+        _probe_entry(lib, "int16_elementwise", xv.data_ptr(), x.numel(),
+                     out.data_ptr())
+        assert torch.equal(out, int16_repro.elementwise_plain(x)), off
+
+
+@pytest.mark.parametrize("name", ["dynamic_sublane", "int16_roll",
+                                  "int16_elementwise"])
+def test_emulated_map_entries_return_the_sm_query_error(emulated, name):
+    """Where the SM count cannot be read, the entry returns the query's
+    cudaError and launches nothing."""
+    lib = emulated("probes", "_smerr")
+    lib.emu_set_sms(0)
+    x = torch.from_numpy(probe_input("int16_full", (7, 33), 1))
+    t = torch.from_numpy(probe_input("beyond_int16", (7, 33), 3))
+    idx = torch.tensor([[2]], dtype=torch.int32)
+    out = torch.full((7, 33), 77, dtype=x.dtype if "int16" in name
+                     else torch.int32)
+    args = {"dynamic_sublane": (idx.data_ptr(), t.data_ptr(), 7, 33),
+            "int16_roll": (x.data_ptr(), 7, 33),
+            "int16_elementwise": (x.data_ptr(), x.numel())}[name]
+    fn = getattr(lib, f"probe_{name}")
+    fn.argtypes = [probes._CTYPES[c] for c in probes._ARGS[name]] + [
+        ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    try:
+        assert fn(*args, out.data_ptr(), 0, None) == 1
+    finally:
+        lib.emu_set_sms(132)    # the emulation's state is shared by copies
+    assert (out == 77).all()
+
+
+def test_emulated_probe_entries_launch_on_the_given_device(emulated):
+    """An entry makes the tensors' device current for its launch and
+    gives the caller's back; on the current device it sets nothing."""
+    lib = emulated("probes", "_device")
+    x = torch.from_numpy(probe_input("int16_full", (7, 33), 1))
+    out = torch.empty_like(x)
+    _probe_entry(lib, "int16_roll", x.data_ptr(), 7, 33, out.data_ptr())
+    assert lib.emu_set_device_calls() == 0
+    _probe_entry(lib, "int16_roll", x.data_ptr(), 7, 33, out.data_ptr(),
+                 device=1)
+    assert lib.emu_get_device() == 0 and lib.emu_set_device_calls() == 2
+    assert torch.equal(out, int16_repro.roll_plain(x))

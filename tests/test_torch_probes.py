@@ -206,3 +206,65 @@ def test_defaults_are_the_scripts_inputs(kernels, key):
     run, args = _DEFAULTS[key]
     np.testing.assert_array_equal(run().numpy(),
                                   _pallas(kernels[key], *args()))
+
+
+def _clamped_row(R: int, j: int) -> int:
+    """The JAX kernel's row for index j: negative counts from the end,
+    then the start clamps into [0, R - 1]."""
+    return min(max(j + R if j < 0 else j, 0), R - 1)
+
+
+@pytest.mark.parametrize("shape", [(9, 37), (5, 1), (6, 2051), (3, 6)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_dynamic_sublane_takes_any_width(shape):
+    """Widths that are no multiple of the card's 4-int vector, so that
+    rows start off it: the row read equals t[j] under the clamp."""
+    t = probe_input("beyond_int16", shape, seed=sum(shape))
+    R = shape[0]
+    for j in (0, 1, R - 1, R, R + 5, -1, -R, -R - 3):
+        got = ke.exp_dynamic_sublane(t, j, device="cpu").numpy()
+        np.testing.assert_array_equal(got, t[_clamped_row(R, j)][None])
+
+
+def _int16_views(shape, seed):
+    """(name, view, its values as numpy): contiguous, 1 and 7 elements
+    into a larger storage, and a strided column slice."""
+    x = probe_input("int16_full", shape, seed)
+    n = x.size
+    flat = torch.from_numpy(probe_input("int16_full", (n + 8,), seed + 1))
+    views = [("contiguous", torch.from_numpy(x))]
+    for off in (1, 7):
+        v = flat[off:off + n].view(shape)
+        v.copy_(torch.from_numpy(x))
+        views.append((f"offset{off}", v))
+    wide = torch.from_numpy(probe_input("int16_full",
+                                        (shape[0], 2 * shape[1]), seed + 2))
+    views.append(("strided", wide[:, ::2]))
+    return [(name, v, v.numpy().copy()) for name, v in views]
+
+
+@pytest.mark.parametrize("shape", [(1, 7), (1025, 33), (3000, 41),
+                                   (32, 4097), (2, 3)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_int16_repro_takes_any_rows_width_and_view(shape):
+    """One row, more than 1024 rows, odd widths, inputs off the start of
+    their storage and strided: roll equals np.roll and elementwise the
+    wrapping numpy max(x + 3, x - 2)."""
+    for name, x, xn in _int16_views(shape, seed=shape[0]):
+        got = int16_repro.roll(x, device="cpu").numpy()
+        np.testing.assert_array_equal(got, np.roll(xn, 1, axis=0), name)
+        got = int16_repro.elementwise(x, device="cpu").numpy()
+        want = np.maximum((xn + np.int16(3)).astype(np.int16),
+                          (xn - np.int16(2)).astype(np.int16))
+        np.testing.assert_array_equal(got, want, name)
+
+
+def test_probe_wrappers_refuse_other_dtypes_on_the_cpu():
+    with pytest.raises(TypeError):
+        int16_repro.roll(np.zeros((4, 4), np.int32), device="cpu")
+    with pytest.raises(TypeError):
+        int16_repro.elementwise(np.zeros((4, 4), np.int32), device="cpu")
+    with pytest.raises(TypeError):
+        ke.exp_dynamic_sublane(np.zeros((4, 4), np.int16), 1, device="cpu")
+    with pytest.raises(ValueError, match=r"\[S, W\]"):
+        int16_repro.roll(np.zeros(4, np.int16), device="cpu")
