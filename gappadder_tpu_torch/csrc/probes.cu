@@ -9,23 +9,38 @@
 // and compute exactly what those kernels compute (the plain versions are
 // in gappadder_tpu_torch/probes/).
 //
-// Design: the shift along axis 0 (pltpu.roll(v, 1, 0), row r takes row
-// r - 1 and row 0 takes the last row) is the SW recurrence's dependency
-// on the row above, so it is mapped as csrc/sw.cu maps it: one thread per
-// row, the block's threads column by column (thread t holds row t % S of
-// the block's column t / S), the row above's value through a
-// double-buffered shared array, and one __syncthreads a step. Columns are
-// independent, so a block holds a few of them (S x cols threads, at most
-// 1024) and the grid splits the rest. The TPU kernels carried their state
-// through VMEM scratch across a sequential grid; here it stays in
-// registers for the whole loop.
+// Design of the int16 loop and the argmax loop (rows 4 and 5 of PERF.md's
+// kernel table): the shift along axis 0 (pltpu.roll(v, 1, 0), row r
+// takes row r - 1 and row 0 takes the last row) is the SW recurrence's
+// dependency on the row above, so it is mapped as csrc/sw.cu maps its
+// rows: one warp a column (the int16 loop: a column pair, two int16
+// columns in one int16x2 word), lane l holding the band of rows
+// lR .. lR + R - 1 in registers, R the least of {1, 2, 4, 8, 16, 32}
+// with 32 R >= S. A step hands each lane's last row to the next lane by
+// one __shfl_sync (lane 0 takes the column's last row: the wrap); the
+// other rows take their row above from their own registers. The
+// recurrence reads the row above's value of the step before, so within
+// a step the rows of a band do not depend on each other, and the step's
+// chain is one shuffle and three ALU operations. No shared memory, no
+// barrier: a block is LOOP_WARPS independent warps and the grid covers
+// the columns. The argmax loop's column max and first argmax are two
+// warp reductions (redux.sync) a step, off the chain of h and e. The
+// TPU kernels carried their state through VMEM scratch across a
+// sequential grid; here it stays in registers for the whole loop.
 //
-// What bounds them: the loops (rows 4-6 of PERF.md's kernel table) do a
-// few int32 (or int16x2) ALU operations per element and step on data that
-// never leaves the SM, so at a size that fills the card they are bound by
-// operations, and at the scripts' single-tile shapes (one or two blocks
-// an SM at most) by the dependent chain of steps: each step waits for the
-// barrier and for the row above's value of the step before.
+// swprobe keeps the first design of the loops: one thread per row, the
+// block's threads column by column (thread t holds row t % S of the
+// block's column t / S), the row above's value through a double-buffered
+// shared array, and one __syncthreads a step; a block holds a few
+// columns (S x cols threads, at most 1024) and the grid splits the rest.
+//
+// What bounds them: the loops (rows 4-6) do a few int32 (or int16x2)
+// ALU operations per element and step on data that never leaves the SM,
+// so at a size that fills the card they are bound by operations, and at
+// the scripts' single-tile shapes (one warp a scheduler at most for
+// rows 4 and 5, a block or two an SM for row 6) by the dependent chain
+// of steps: rows 4 and 5 wait each step for the shuffle of the row
+// above, row 6 for the barrier and the row above's value.
 //
 // The two copies (dynamic_sublane, int16_roll) and int16_elementwise are
 // bound by bytes, and at the scripts' shapes by the launch. They share
@@ -49,6 +64,7 @@
 #include <algorithm>
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace {
@@ -166,11 +182,12 @@ __global__ void dynamic_sublane_kernel(const int* __restrict__ idx,
 // ---- exp_int16_loop: `steps` steps of
 //   e = max(h - 1, e - 1); h = max(roll(h, 1, 0) + 1, e); h = max(h, -16384)
 // from h = e = int16(x), out = int32(h). LANES = 2 packs two int16
-// columns into one 32-bit register and runs the int16x2 SIMD
+// columns (a warp's column pair; the last pair of an odd width has a
+// dead high half) into one 32-bit register and runs the int16x2 SIMD
 // intrinsics (per-halfword, wrapping: int16's own arithmetic): that is
 // the port of exp_int16_loop. Three yardsticks for the SW redesign share
 // the source and are timed beside it, equal to it only where nothing
-// wraps: LANES = 1 runs the recurrence on one int32 column a thread, and
+// wraps: LANES = 1 runs the recurrence on one int32 column a warp, and
 // DPX writes each max(a + b, c) as one DPX intrinsic (__viaddmax_s16x2 /
 // __viaddmax_s32). CUDA 12.8's header lowers the 16-bit one on sm_90 to
 // add.s16x2 + max.s16x2, which wrap; the port keeps the plain intrinsics,
@@ -180,13 +197,16 @@ struct Lane;
 
 template <>
 struct Lane<2> {
-  static __device__ __forceinline__ unsigned load(const int* p) {
+  // the word of columns p[0] and, if `pair`, p[1] (else the high half
+  // is dead: neither read nor written)
+  static __device__ __forceinline__ unsigned load(const int* p, bool pair) {
     return (static_cast<unsigned>(p[0]) & 0xffffu) |
-           (static_cast<unsigned>(p[1]) << 16);
+           (pair ? static_cast<unsigned>(p[1]) << 16 : 0u);
   }
-  static __device__ __forceinline__ void store(int* p, unsigned v) {
+  static __device__ __forceinline__ void store(int* p, unsigned v,
+                                               bool pair) {
     p[0] = static_cast<int16_t>(v & 0xffffu);
-    p[1] = static_cast<int16_t>(v >> 16);
+    if (pair) p[1] = static_cast<int16_t>(v >> 16);
   }
   static __device__ __forceinline__ unsigned add(unsigned a, int b) {
     return __vadd2(a, (static_cast<unsigned>(b) & 0xffffu) * 0x10001u);
@@ -205,10 +225,10 @@ struct Lane<2> {
 
 template <>
 struct Lane<1> {
-  static __device__ __forceinline__ unsigned load(const int* p) {
+  static __device__ __forceinline__ unsigned load(const int* p, bool) {
     return static_cast<unsigned>(p[0]);
   }
-  static __device__ __forceinline__ void store(int* p, unsigned v) {
+  static __device__ __forceinline__ void store(int* p, unsigned v, bool) {
     p[0] = static_cast<int>(v);
   }
   static __device__ __forceinline__ unsigned add(unsigned a, int b) {
@@ -236,29 +256,75 @@ __device__ __forceinline__ unsigned addmax(unsigned a, int b, unsigned c) {
   else return L::max(L::add(a, b), c);
 }
 
-template <int LANES, bool DPX>
-__global__ void loop_kernel(const int* __restrict__ x, int S, int W,
-                            int steps, int* __restrict__ out) {
-  using L = Lane<LANES>;
-  extern __shared__ unsigned sh_loop[];            // [2][nt] h of the step
-  const int nt = blockDim.x;
-  const int tid = threadIdx.x;
-  const int r = tid % S;
-  const int col = (blockIdx.x * (nt / S) + tid / S) * LANES;
-  const bool live = col < W;
-  const int above = r == 0 ? tid + S - 1 : tid - 1;
-  const size_t at = static_cast<size_t>(r) * W + col;
-  const unsigned floor_ = L::splat(-16384);
-  unsigned h = live ? L::load(x + at) : 0u;
-  unsigned e = h;
-  for (int s = 0; s < steps; ++s) {
-    unsigned* buf = sh_loop + (s & 1) * nt;
-    buf[tid] = h;
-    e = addmax<LANES, DPX>(h, -1, L::add(e, -1));
-    __syncthreads();
-    h = L::max(addmax<LANES, DPX>(buf[above], 1, e), floor_);
+constexpr unsigned FULL_MASK = 0xffffffffu;
+// columns (pairs) a block, one a warp. The loops' launch bounds ask for
+// one block an SM at least: without that minimum ptxas capped the
+// 32-row bands at 96 registers and spilled to local memory in the loop.
+constexpr int LOOP_WARPS = 4;
+
+// A warp's column of S rows in bands of R a lane. FULL (S = 32 R): every
+// row is live and lane 0 takes its row above from lane 31's last row.
+// Otherwise the rows from S on are dead (the lanes past `last`, and lane
+// `last`'s registers past `give`): they run the step on garbage, are
+// never stored and feed no live row, because lane `last` hands on the
+// column's last row, row S - 1 (its register `give`), and lane 0 takes
+// that. No register is indexed at run time: the row handed on is an
+// unrolled select chain over the band, and only where S != 32 R.
+template <int R, bool FULL>
+struct Band {
+  int lane;   // this lane
+  int src;    // the lane whose handed-on row is this lane's first row's above
+  int give;   // this lane's register it hands on
+  int live;   // this lane's rows below S
+  __device__ __forceinline__ explicit Band(int S) {
+    lane = threadIdx.x & 31;
+    const int last = FULL ? 31 : (S - 1) / R;
+    src = lane == 0 ? last : lane - 1;
+    give = FULL || lane != last ? R - 1 : (S - 1) % R;
+    live = FULL ? R : ::min(::max(S - lane * R, 0), R);
   }
-  if (live) L::store(out + at, h);
+  template <typename T>
+  __device__ __forceinline__ T handed(const T (&h)[R]) const {
+    T v = h[R - 1];
+    if (!FULL) {
+#pragma unroll
+      for (int k = 0; k < R - 1; ++k) v = give == k ? h[k] : v;
+    }
+    return v;
+  }
+};
+
+template <int LANES, bool DPX, int R, bool FULL>
+__global__ void __launch_bounds__(32 * LOOP_WARPS, 1)
+loop_kernel(const int* __restrict__ x, int S, int W, int steps,
+            int* __restrict__ out) {
+  using L = Lane<LANES>;
+  const int col = (blockIdx.x * LOOP_WARPS + threadIdx.x / 32) * LANES;
+  if (col >= W) return;                              // the whole warp
+  const bool pair = LANES == 2 && col + 1 < W;
+  const Band<R, FULL> band(S);
+  const size_t at = static_cast<size_t>(band.lane) * R * W + col;
+  const unsigned floor_ = L::splat(-16384);
+  unsigned h[R], e[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    h[k] = k < band.live ? L::load(x + at + static_cast<size_t>(k) * W, pair)
+                         : 0u;
+    e[k] = h[k];
+  }
+  for (int s = 0; s < steps; ++s) {
+    const unsigned up = __shfl_sync(FULL_MASK, band.handed(h), band.src);
+#pragma unroll
+    for (int k = 0; k < R; ++k)
+      e[k] = addmax<LANES, DPX>(h[k], -1, L::add(e[k], -1));
+#pragma unroll
+    for (int k = R - 1; k > 0; --k)
+      h[k] = L::max(addmax<LANES, DPX>(h[k - 1], 1, e[k]), floor_);
+    h[0] = L::max(addmax<LANES, DPX>(up, 1, e[0]), floor_);
+  }
+#pragma unroll
+  for (int k = 0; k < R; ++k)
+    if (k < band.live) L::store(out + at + static_cast<size_t>(k) * W, h[k], pair);
 }
 
 // ---- exp_int32_loop_with_argmax: `steps` steps of
@@ -268,81 +334,57 @@ __global__ void loop_kernel(const int* __restrict__ x, int S, int W,
 // from h = e = x, bs = 0; out = h + bs, amax = the last step's am. The
 // JAX kernel drops am (it adds am * 0); returning the last one keeps the
 // per-step cross-row argmax, the point of the probe, from being removed.
-// Each step's column reduction runs as warp shuffles (S is a multiple of
-// 32, so a warp lies in one column) and one partial per warp in a
-// double-buffered shared slot; row 0 of each column folds the partials of
-// step s in step s + 1, after that step's one barrier.
-__global__ void int32_argmax_kernel(const int* __restrict__ x, int S, int W,
-                                    int steps, int* __restrict__ out,
-                                    int* __restrict__ amax) {
-  extern __shared__ int sh_am[];
-  const int nt = blockDim.x;
-  const int cols = nt / S;
-  const int nw = S >> 5;                            // warps per column
-  int* sh = sh_am;                                  // [2][nt] h
-  int* pm = sh + 2 * nt;                            // [2][cols * nw] max
-  float* pv = reinterpret_cast<float*>(pm + 2 * cols * nw);  // max float
-  int* pi = reinterpret_cast<int*>(pv + 2 * cols * nw);      // its row
-  int* cbs = pi + 2 * cols * nw;                    // [cols] final bs
-
-  const int tid = threadIdx.x;
-  const int r = tid % S;
-  const int c = tid / S;
-  const int col = blockIdx.x * cols + c;
-  const bool live = col < W;
-  const int above = r == 0 ? tid + S - 1 : tid - 1;
-  const size_t at = static_cast<size_t>(r) * W + col;
-  const int slot0 = c * nw;
-  int h = live ? x[at] : 0;
-  int e = h;
+// A lane folds its rows to an int max, one redux.sync gives the
+// column's max m. float32 rounding is monotone, so the max of
+// float32(h) is float32(m) and the first argmax is the least row whose
+// float32 equals it: each lane finds its first such row (S if none) and
+// a second redux.sync takes the least. Neither reduction feeds the next
+// step's h or e.
+template <int R, bool FULL>
+__global__ void __launch_bounds__(32 * LOOP_WARPS, 1)
+int32_argmax_kernel(const int* __restrict__ x, int S, int W, int steps,
+                    int* __restrict__ out, int* __restrict__ amax) {
+  const int col = blockIdx.x * LOOP_WARPS + threadIdx.x / 32;
+  if (col >= W) return;                              // the whole warp
+  const Band<R, FULL> band(S);
+  const int r0 = band.lane * R;
+  const size_t at = static_cast<size_t>(r0) * W + col;
+  int h[R], e[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    h[k] = k < band.live ? x[at + static_cast<size_t>(k) * W] : 0;
+    e[k] = h[k];
+  }
   int bs = 0, am = 0;
-
-  auto fold = [&](int slot) {       // row 0: the column's max and argmax
-    const int* m = pm + slot * cols * nw + slot0;
-    const float* v = pv + slot * cols * nw + slot0;
-    const int* i = pi + slot * cols * nw + slot0;
-    int bm = m[0];
-    float bv = v[0];
-    int bi = i[0];
-    for (int w = 1; w < nw; ++w) {
-      bm = max(bm, m[w]);
-      if (v[w] > bv) { bv = v[w]; bi = i[w]; }
-    }
-    bs = max(bs, bm);
-    am = bi;
-  };
-
+  // One step a trip keeps every step's argmax: am leaves the loop, and
+  // no trip knows it is the last. In a trip of two ptxas drops the first
+  // step's, which the second overwrites, even behind an empty asm (it
+  // reaches no instruction).
+#pragma unroll 1
   for (int s = 0; s < steps; ++s) {
-    int* buf = sh + (s & 1) * nt;
-    buf[tid] = h;
-    e = max(wadd(h, -1), wadd(e, -1));
-    __syncthreads();
-    h = max(wadd(buf[above], 1), e);
-    if (r == 0 && s > 0) fold((s - 1) & 1);
-    int m = h, i = r;
-    float v = __int2float_rn(h);
-    for (int o = 16; o > 0; o >>= 1) {
-      const int m2 = __shfl_down_sync(0xffffffffu, m, o);
-      const float v2 = __shfl_down_sync(0xffffffffu, v, o);
-      const int i2 = __shfl_down_sync(0xffffffffu, i, o);
-      m = max(m, m2);
-      if (v2 > v || (v2 == v && i2 < i)) { v = v2; i = i2; }
-    }
-    if ((r & 31) == 0) {
-      const int k = (s & 1) * cols * nw + slot0 + (r >> 5);
-      pm[k] = m;
-      pv[k] = v;
-      pi[k] = i;
-    }
+    const int up = __shfl_sync(FULL_MASK, band.handed(h), band.src);
+#pragma unroll
+    for (int k = 0; k < R; ++k) e[k] = max(wadd(h[k], -1), wadd(e[k], -1));
+#pragma unroll
+    for (int k = R - 1; k > 0; --k) h[k] = max(wadd(h[k - 1], 1), e[k]);
+    h[0] = max(wadd(up, 1), e[0]);
+    int lane_max = INT_MIN;
+#pragma unroll
+    for (int k = 0; k < R; ++k)
+      if (k < band.live) lane_max = max(lane_max, h[k]);
+    const int m = __reduce_max_sync(FULL_MASK, lane_max);
+    const float fm = __int2float_rn(m);
+    unsigned first = S;
+#pragma unroll
+    for (int k = R - 1; k >= 0; --k)
+      if (k < band.live && __int2float_rn(h[k]) == fm) first = r0 + k;
+    am = static_cast<int>(__reduce_min_sync(FULL_MASK, first));
+    bs = max(bs, m);
   }
-  __syncthreads();
-  if (r == 0) {
-    fold((steps - 1) & 1);
-    cbs[c] = bs;
-    if (live) amax[col] = am;
-  }
-  __syncthreads();
-  if (live) out[at] = wadd(h, cbs[c]);
+#pragma unroll
+  for (int k = 0; k < R; ++k)
+    if (k < band.live) out[at + static_cast<size_t>(k) * W] = wadd(h[k], bs);
+  if (band.lane == 0) amax[col] = am;
 }
 
 // ---- swprobe: the SW-shaped ladder. Per tile of columns, `nstep` steps
@@ -477,26 +519,48 @@ cudaError_t map_blocks(long long bytes, int device, int* blocks) {
   return cudaSuccess;
 }
 
-// columns a block holds: S x cols threads, at most 1024
+// columns a block of swprobe holds: S x cols threads, at most 1024
 int block_cols(int S) { return std::max(1, std::min(4, 1024 / S)); }
 
 int grid_for(int groups, int cols) { return (groups + cols - 1) / cols; }
 
+// f(std::integral_constant<int, R>()) for the band of S rows a lane: the
+// least R of {1, 2, 4, 8, 16, 32} with 32 R >= S (1 <= S <= 1024)
+template <class F>
+void with_band(int S, F f) {
+  if (S <= 32) f(std::integral_constant<int, 1>());
+  else if (S <= 64) f(std::integral_constant<int, 2>());
+  else if (S <= 128) f(std::integral_constant<int, 4>());
+  else if (S <= 256) f(std::integral_constant<int, 8>());
+  else if (S <= 512) f(std::integral_constant<int, 16>());
+  else f(std::integral_constant<int, 32>());
+}
+
+template <int LANES, bool DPX, int R>
+void launch_loop(int blocks, cudaStream_t st, const int* x, int S, int W,
+                 int steps, int* out) {
+  if (S == 32 * R)
+    loop_kernel<LANES, DPX, R, true><<<blocks, 32 * LOOP_WARPS, 0, st>>>(x, S, W, steps, out);
+  else
+    loop_kernel<LANES, DPX, R, false><<<blocks, 32 * LOOP_WARPS, 0, st>>>(x, S, W, steps, out);
+}
+
 int loop(const void* x, int S, int W, int steps, int lanes, int dpx,
          void* out, int device, void* stream) {
   if (S <= 0 || W <= 0) return 0;
+  if (S > 32 * 32) return static_cast<int>(cudaErrorInvalidValue);
   OnDevice on(device);
-  const int cols = block_cols(S);
-  const int nt = S * cols;
-  const size_t smem = 2 * static_cast<size_t>(nt) * sizeof(unsigned);
-  const int blocks = grid_for((W + lanes - 1) / lanes, cols);
+  const int blocks = grid_for(grid_for(W, lanes), LOOP_WARPS);
   auto st = static_cast<cudaStream_t>(stream);
   auto xi = static_cast<const int*>(x);
   auto o = static_cast<int*>(out);
-  if (lanes == 2 && !dpx) loop_kernel<2, false><<<blocks, nt, smem, st>>>(xi, S, W, steps, o);
-  else if (lanes == 2) loop_kernel<2, true><<<blocks, nt, smem, st>>>(xi, S, W, steps, o);
-  else if (!dpx) loop_kernel<1, false><<<blocks, nt, smem, st>>>(xi, S, W, steps, o);
-  else loop_kernel<1, true><<<blocks, nt, smem, st>>>(xi, S, W, steps, o);
+  with_band(S, [&](auto band) {
+    constexpr int R = decltype(band)::value;
+    if (lanes == 2 && !dpx) launch_loop<2, false, R>(blocks, st, xi, S, W, steps, o);
+    else if (lanes == 2) launch_loop<2, true, R>(blocks, st, xi, S, W, steps, o);
+    else if (!dpx) launch_loop<1, false, R>(blocks, st, xi, S, W, steps, o);
+    else launch_loop<1, true, R>(blocks, st, xi, S, W, steps, o);
+  });
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -535,15 +599,20 @@ int probe_loop_yardstick(const void* x, int S, int W, int steps, int lanes,
 int probe_int32_argmax(const void* x, int S, int W, int steps, void* out,
                        void* amax, int device, void* stream) {
   if (S <= 0 || W <= 0) return 0;
+  if (S > 32 * 32 || steps < 1) return static_cast<int>(cudaErrorInvalidValue);
   OnDevice on(device);
-  const int cols = block_cols(S);
-  const int nt = S * cols;
-  const int parts = 2 * cols * (S / 32);
-  const size_t smem = (2 * static_cast<size_t>(nt) + 3 * parts + cols) * 4;
+  const int blocks = grid_for(W, LOOP_WARPS);
   auto st = static_cast<cudaStream_t>(stream);
-  int32_argmax_kernel<<<grid_for(W, cols), nt, smem, st>>>(
-      static_cast<const int*>(x), S, W, steps, static_cast<int*>(out),
-      static_cast<int*>(amax));
+  auto xi = static_cast<const int*>(x);
+  auto o = static_cast<int*>(out);
+  auto a = static_cast<int*>(amax);
+  with_band(S, [&](auto band) {
+    constexpr int R = decltype(band)::value;
+    if (S == 32 * R)
+      int32_argmax_kernel<R, true><<<blocks, 32 * LOOP_WARPS, 0, st>>>(xi, S, W, steps, o, a);
+    else
+      int32_argmax_kernel<R, false><<<blocks, 32 * LOOP_WARPS, 0, st>>>(xi, S, W, steps, o, a);
+  });
   return static_cast<int>(cudaGetLastError());
 }
 

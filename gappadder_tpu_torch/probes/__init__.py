@@ -32,7 +32,10 @@ launches = dict.fromkeys(("dynamic_sublane", "int16_loop", "loop_yardstick",
                           "int32_argmax", "swprobe", "int16_elementwise",
                           "int16_roll"), 0)
 
-MAX_THREADS = 1024      # a block of the loops holds every row of its columns
+# the loops' most rows: the int16 and argmax loops hold a column in one
+# warp, 32 lanes of at most 32 rows; swprobe in one block of <= 1024
+# threads
+MAX_ROWS = 1024
 
 # each C entry's arguments before the device index and the stream: p a
 # pointer, i an int, q a 64-bit int
@@ -89,14 +92,15 @@ def inputs(entry: str, device, dtype: torch.dtype, *arrays):
     return dev.index, [tensor_on(a, dtype, dev, entry) for a in arrays]
 
 
-def check_rows(entry: str, x: torch.Tensor, multiple: int = 1) -> None:
-    """The loop kernels keep a column's rows in one block."""
+def check_rows(entry: str, x: torch.Tensor) -> None:
+    """x is [S, W] with 1 <= S <= MAX_ROWS: the loop kernels hold a
+    column's rows in one warp (one block for swprobe)."""
     if x.dim() != 2:
         raise ValueError(f"{entry}: expected [S, W], got {tuple(x.shape)}")
     S = x.shape[0]
-    if not 1 <= S <= MAX_THREADS or S % multiple:
+    if not 1 <= S <= MAX_ROWS:
         raise ValueError(f"{entry}: {S} rows; the kernel takes 1.."
-                         f"{MAX_THREADS} rows, a multiple of {multiple}")
+                         f"{MAX_ROWS} rows")
 
 
 def _bind(name: str):

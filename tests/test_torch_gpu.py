@@ -377,10 +377,18 @@ def test_probe_dynamic_sublane_matches_plain(cuda, j):
                       lambda: ke.exp_dynamic_sublane_plain(t, idx))
 
 
+# (S, W) of the loops: the script's, then S no multiple of 32 (lanes
+# past the column's last row, partial last bands), R = 32 whole, odd
+# widths (the int16 loop's last column pair half dead)
+LOOP_SHAPES = [(ke.S, ke.TB), (100, 37), (1000, 9), (1024, 5), (33, 1),
+               (5, 3)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", INT16_LOOP_INPUTS)
-def test_probe_int16_loop_matches_plain(cuda, case):
-    x = torch.from_numpy(probe_input(case, (ke.S, ke.TB), 1)).to(cuda)
+@pytest.mark.parametrize("S,W", LOOP_SHAPES)
+def test_probe_int16_loop_matches_plain(cuda, case, S, W):
+    x = torch.from_numpy(probe_input(case, (S, W), 1)).to(cuda)
     _same_and_counted("int16_loop", lambda: ke.exp_int16_loop(x, device=cuda),
                       lambda: ke.exp_int16_loop_plain(x))
 
@@ -388,8 +396,10 @@ def test_probe_int16_loop_matches_plain(cuda, case):
 @pytest.mark.gpu
 @pytest.mark.parametrize("lanes,dpx", [(1, False), (1, True), (2, False),
                                        (2, True)])
-def test_probe_loop_yardsticks_match_where_nothing_wraps(cuda, lanes, dpx):
-    x = probe_input("beyond_int16", (96, 70), 9) // 100
+@pytest.mark.parametrize("S,W", [(96, 70), (1000, 9)])
+def test_probe_loop_yardsticks_match_where_nothing_wraps(cuda, lanes, dpx,
+                                                         S, W):
+    x = probe_input("beyond_int16", (S, W), 9) // 100
     x = torch.from_numpy(x).to(cuda)
     _same_and_counted(
         "loop_yardstick",
@@ -399,7 +409,7 @@ def test_probe_loop_yardsticks_match_where_nothing_wraps(cuda, lanes, dpx):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", ARGMAX_INPUTS)
-@pytest.mark.parametrize("S,W", [(128, 128), (64, 37)])
+@pytest.mark.parametrize("S,W", [(128, 128), (64, 37), *LOOP_SHAPES[1:]])
 def test_probe_int32_argmax_matches_plain(cuda, case, S, W):
     x = torch.from_numpy(probe_input(case, (S, W), 2)).to(cuda)
     _same_and_counted(
@@ -428,14 +438,22 @@ def test_probe_int16_repro_matches_plain(cuda, kernel, shape):
 
 @pytest.mark.gpu
 def test_probe_kernels_refuse_shapes_they_do_not_take(cuda):
+    """More than 1024 rows, and an int32 roll, are refused without a
+    launch; an odd width of the int16 loop and rows no multiple of 32 of
+    the argmax loop are taken and match their plain twins."""
+    x = torch.from_numpy(probe_input("near_int16_max", (8, 5), 3)).to(cuda)
+    _same_and_counted("int16_loop", lambda: ke.exp_int16_loop(x, device=cuda),
+                      lambda: ke.exp_int16_loop_plain(x))
+    x = torch.from_numpy(probe_input("float_ties", (48, 8), 3)).to(cuda)
+    _same_and_counted(
+        "int32_argmax", lambda: ke.exp_int32_loop_with_argmax(x, device=cuda),
+        lambda: ke.exp_int32_loop_with_argmax_plain(x))
     before = dict(probes.launches)
-    with pytest.raises(ValueError, match="even width"):
-        ke.exp_int16_loop(torch.zeros((8, 5), dtype=torch.int32), device=cuda)
-    with pytest.raises(ValueError, match="multiple of 32"):
-        ke.exp_int32_loop_with_argmax(torch.zeros((48, 8), dtype=torch.int32),
-                                      device=cuda)
-    with pytest.raises(ValueError, match="rows"):
-        swprobe.run(torch.zeros((1025, 8), dtype=torch.int32), device=cuda)
+    tall = torch.zeros((1025, 8), dtype=torch.int32)
+    for run in (ke.exp_int16_loop, ke.exp_int32_loop_with_argmax,
+                swprobe.run):
+        with pytest.raises(ValueError, match="rows"):
+            run(tall, device=cuda)
     with pytest.raises(TypeError):
         int16_repro.roll(torch.zeros((4, 4), dtype=torch.int32), device=cuda)
     assert probes.launches == before

@@ -6,11 +6,11 @@ own logic (tiles, merge paths, bands of rows, warp hand-offs, the exact
 tie-break) on the CPU: each `csrc/*.cu` source is translated to plain
 C++ against a small emulation of the CUDA features it uses (one
 std::thread per CUDA thread, blocks one after another, __syncthreads and
-the warp shuffles and ballots as barriers, dynamic shared memory a
-buffer per block), built with g++ and called through the same C entry
-point the wrapper calls, on CPU buffers. It says nothing about speed,
-and a kernel that uses a CUDA feature the emulation lacks fails to build
-here. Skips where there is no g++.
+the warp shuffles, ballots and reductions as barriers, dynamic shared
+memory a buffer per block), built with g++ and called through the same
+C entry point the wrapper calls, on CPU buffers. It says nothing about
+speed, and a kernel that uses a CUDA feature the emulation lacks fails
+to build here. Skips where there is no g++.
 """
 
 import ctypes
@@ -27,7 +27,8 @@ from gappadder_tpu_torch.ops import cuda_build, psort, sw_cuda
 from gappadder_tpu_torch.ops.sw_host import BWA_PARAMS, SWParams
 from gappadder_tpu_torch.probes import int16_repro
 from gappadder_tpu_torch.probes import kernel_experiments as ke
-from gappadder_tpu_torch.testcases import (SW_EDGE_SHAPES, SW_STRIP_SHAPES,
+from gappadder_tpu_torch.testcases import (ARGMAX_INPUTS, INT16_LOOP_INPUTS,
+                                           SW_EDGE_SHAPES, SW_STRIP_SHAPES,
                                            probe_input, sort_case,
                                            sw_edge_pairs, sw_strip_pairs,
                                            sw_test_pairs)
@@ -140,6 +141,34 @@ template <class T> T __shfl_up_sync(unsigned, T v, unsigned d) {
 template <class T> T __shfl_down_sync(unsigned, T v, unsigned d) {
   const int l = emu::lane();
   return emu::exchange(v, l + (int)d < 32 ? l + (int)d : l);
+}
+template <class T> T __shfl_sync(unsigned, T v, int src) {
+  return emu::exchange(v, src & 31);
+}
+namespace emu {
+// every lane's value folded with f over the warp, given to every lane
+template <class T, class F> T all_reduce(T v, F f) {
+  Warp& w = warp();
+  uint64_t bits = 0;
+  std::memcpy(&bits, &v, sizeof(T));
+  w.slot[lane()] = bits;
+  w.bar.arrive_and_wait();
+  T r;
+  std::memcpy(&r, &w.slot[0], sizeof(T));
+  for (int i = 1; i < 32; ++i) {
+    T o;
+    std::memcpy(&o, &w.slot[i], sizeof(T));
+    r = f(r, o);
+  }
+  w.bar.arrive_and_wait();
+  return r;
+}
+}  // namespace emu
+inline int __reduce_max_sync(unsigned, int v) {
+  return emu::all_reduce(v, [](int a, int b) { return a > b ? a : b; });
+}
+inline unsigned __reduce_min_sync(unsigned, unsigned v) {
+  return emu::all_reduce(v, [](unsigned a, unsigned b) { return a < b ? a : b; });
 }
 inline unsigned __ballot_sync(unsigned, bool p) {
   emu::Warp& w = emu::warp();
@@ -509,3 +538,91 @@ def test_emulated_probe_entries_launch_on_the_given_device(emulated):
                  device=1)
     assert lib.emu_get_device() == 0 and lib.emu_set_device_calls() == 2
     assert torch.equal(out, int16_repro.roll_plain(x))
+
+
+# (S, W) of the loops: bands of R = 1..32 rows a lane, S = 32 R (no
+# select) and not (a partial last band: 5, 100, 1000; lanes past the
+# column's last row), one row, odd widths (the int16 loop's last column
+# pair half dead), several blocks of warps
+LOOP_SHAPES = [(128, 6), (32, 3), (1, 5), (5, 7), (64, 4), (33, 1),
+               (100, 9), (1024, 2), (1000, 3), (256, 37)]
+LOOP_STEPS = 40
+
+
+def _emulated_loop(lib, x, steps, lanes=2, dpx=None):
+    """exp_int16_loop's launch (dpx None) or recurrence_yardstick's, on
+    CPU buffers; the output starts as garbage and the guard elements
+    after it stay untouched (an odd width's dead half is not stored)."""
+    S, W = x.shape
+    buf = torch.full((S * W + 8,), -12345, dtype=torch.int32)
+    out = buf[:S * W].view(S, W)
+    if dpx is None:
+        _probe_entry(lib, "int16_loop", x.data_ptr(), S, W, steps,
+                     out.data_ptr())
+    else:
+        _probe_entry(lib, "loop_yardstick", x.data_ptr(), S, W, steps,
+                     lanes, int(dpx), out.data_ptr())
+    assert (buf[S * W:] == -12345).all()
+    return out
+
+
+@pytest.mark.parametrize("shape", LOOP_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_emulated_int16_loop_matches_plain(emulated, shape):
+    """The warp-band int16x2 loop on every input where int16 wraps (h + 1,
+    e - 1, the cast), at every band size, partial bands and odd widths."""
+    lib = emulated("probes")
+    for name in INT16_LOOP_INPUTS:
+        x = torch.from_numpy(probe_input(name, shape, 1))
+        got = _emulated_loop(lib, x, LOOP_STEPS)
+        assert torch.equal(got, ke.exp_int16_loop_plain(x, LOOP_STEPS)), name
+
+
+@pytest.mark.parametrize("shape", LOOP_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_emulated_loop_yardsticks_match_where_nothing_wraps(emulated, shape):
+    """int32 lanes and the DPX forms of the loop equal it within
+    +-16000."""
+    lib = emulated("probes")
+    x = torch.from_numpy(probe_input("beyond_int16", shape, 9) // 100)
+    want = ke.exp_int16_loop_plain(x, LOOP_STEPS)
+    for lanes, dpx in ((1, False), (1, True), (2, False), (2, True)):
+        got = _emulated_loop(lib, x, LOOP_STEPS, lanes, dpx)
+        assert torch.equal(got, want), (lanes, dpx)
+
+
+@pytest.mark.parametrize("shape", LOOP_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_emulated_int32_argmax_matches_plain(emulated, shape):
+    """The warp-band argmax loop: the two warp reductions a step, the
+    first row under float32 ties, int32 wrapping, and rows past S kept
+    out of the max."""
+    lib = emulated("probes")
+    S, W = shape
+    for name in ARGMAX_INPUTS:
+        x = torch.from_numpy(probe_input(name, shape, 2))
+        out = torch.full_like(x, -12345)
+        am = torch.full((W,), -6, dtype=torch.int32)
+        _probe_entry(lib, "int32_argmax", x.data_ptr(), S, W, LOOP_STEPS,
+                     out.data_ptr(), am.data_ptr())
+        want_out, want_am = ke.exp_int32_loop_with_argmax_plain(
+            x, LOOP_STEPS)
+        assert torch.equal(out, want_out), name
+        assert torch.equal(am, want_am), name
+
+
+def test_emulated_argmax_loop_wraps_int32_and_picks_the_first_float_tie(
+        emulated):
+    """Rows near INT32_MAX wrap on h + 1 (the max moves to the wrapped
+    column's other rows), and distinct ints that round to one float32
+    take the first row."""
+    lib = emulated("probes")
+    S, W = 100, 3
+    x = np.full((S, W), -5, np.int32)
+    x[7:, 0] = np.iinfo(np.int32).max - 3
+    x[[3, 60, 99], 1] = [(1 << 29) + 3, (1 << 29) + 1, (1 << 29) + 2]
+    x[:, 2] = np.arange(S)[::-1]
+    x = torch.from_numpy(x)
+    out = torch.full_like(x, -1)
+    am = torch.full((W,), -6, dtype=torch.int32)
+    _probe_entry(lib, "int32_argmax", x.data_ptr(), S, W, 6, out.data_ptr(),
+                 am.data_ptr())
+    want_out, want_am = ke.exp_int32_loop_with_argmax_plain(x, 6)
+    assert torch.equal(out, want_out) and torch.equal(am, want_am)
