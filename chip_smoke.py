@@ -104,12 +104,14 @@ PROBE_KERNELS = {
 # combine (max, compare, two selects) once an element.
 OPS_LOOP_WORD = 4
 OPS_ARGMAX = 8
-# swprobe's step by level: 1 is max(A - 1, tr) and row 0's select; 2
-# adds B 2, C's select and max 2, A's max 1; 3 adds D's select and
-# max(C - 1) 2, E's max 1, sc's compare and select and A's add-max 3,
-# B's compare, and, select 3, C's max 1, E's select 1. The final
+# swprobe's step by level, a row: 1 is max(A - 1, tr) 1; 2 adds A - 7
+# and max(B - 2, .) 2, C's max with the row above 1, A's max 1; 3 adds
+# D's max(above, C - 1) 1, E's max 1, sc's compare and select and A's
+# add-max 3, B's row <= s compare and select 2, max(C, 0) 1. Row 0's
+# selects (A = tr, C and D from A, E from C, B's row >= 1) are one row's
+# work a column, not every row's, so they are not counted. The final
 # A + B + C + D + E and column max: 5 an element, once.
-SW_LEVEL_OPS = {0: 0, 1: 2, 2: 7, 3: 18}
+SW_LEVEL_OPS = {0: 0, 1: 1, 2: 5, 3: 13}
 YARDSTICKS = ((1, False), (1, True), (2, True))   # (lanes, dpx)
 # rows 4 and 5 held to plain also off the script's shape: S no multiple
 # of 32, with lanes past the column's last row (5, 100) and a partial
@@ -1778,13 +1780,16 @@ def sort_shape_times(psort, calls) -> list:
 def check_probes(ke, sp, ir, dev, fill_tiles: int) -> dict:
     """Every probe kernel against its plain twin on the card, exactly:
     at the scripts' shapes on seeded inputs (the int16 loop where int16
-    wraps, the argmax loop with ties, every swprobe level), then rows
-    4-6 at `fill_tiles` tiles of 128 columns, rows 4 and 5 (and the
-    yardsticks) at `LOOP_SHAPES`. Returns, by launch
+    wraps, the argmax loop with ties, every swprobe level, also near
+    INT32_MAX), then rows 4-6 at `fill_tiles` tiles of 128 columns, rows
+    4 and 5 (and the yardsticks) at `LOOP_SHAPES`, row 6 at its band
+    edges (`testcases.SWPROBE_SHAPES`). Returns, by launch
     counter, the cases run and the max abs difference (0); raises on the
     first difference."""
     from gappadder_tpu_torch.testcases import (ARGMAX_INPUTS,
-                                               INT16_LOOP_INPUTS, probe_input)
+                                               INT16_LOOP_INPUTS,
+                                               SWPROBE_INPUTS, SWPROBE_SHAPES,
+                                               probe_input)
     keys = (*PROBE_KERNELS, "loop_yardstick")
     cases = dict.fromkeys(keys, 0)
     errs = dict.fromkeys(keys, 0)
@@ -1827,7 +1832,10 @@ def check_probes(ke, sp, ir, dev, fill_tiles: int) -> dict:
             x = on(probe_input(name, shape, 2))
             same("int32_argmax", ke.exp_int32_loop_with_argmax(x),
                  ke.exp_int32_loop_with_argmax_plain(x))
-    for x in (sp.script_input(1), sp.script_input(2, tiles=fill_tiles)):
+    for x in (sp.script_input(1), sp.script_input(2, tiles=fill_tiles),
+              probe_input("near_int32_max", (sp.S, sp.NBT * sp.TB), 5),
+              *(probe_input(name, shape, sum(shape))
+                for shape in SWPROBE_SHAPES for name in SWPROBE_INPUTS)):
         x = on(x)
         for level in sp.LEVELS:
             same("swprobe", sp.run(x, level), sp.run_plain(x, level))
@@ -1981,9 +1989,10 @@ def loop_times(ke, dev, fill: int, ops_s: float) -> dict:
 
 def kernel_label(mangled: str):
     """"loop_kernel<2,0,4,1>" (template arguments in order) for a loop
-    kernel's mangled name; None for other kernels."""
-    m = re.search(r"(loop_kernel|int32_argmax_kernel)I((?:L[ib]\d+E)+)E",
-                  mangled)
+    kernel's mangled name (`swprobe_kernel<LEVEL,R>` too); None for
+    other kernels."""
+    m = re.search(r"(loop_kernel|int32_argmax_kernel|swprobe_kernel)I"
+                  r"((?:L[ib]\d+E)+)E", mangled)
     if not m:
         return None
     args = re.findall(r"L[ib](\d+)E", m.group(2))
@@ -1991,8 +2000,12 @@ def kernel_label(mangled: str):
 
 
 def script_band(label: str) -> bool:
-    """The loop kernels the script's shape runs: R = 4, every row live."""
-    return label.partition("<")[2].rstrip(">").split(",")[-2:] == ["4", "1"]
+    """The loop kernels the scripts' shapes run: rows 4 and 5 at 128
+    rows, R = 4 with every row live; swprobe at 136 rows, R = 5."""
+    args = label.partition("<")[2].rstrip(">").split(",")
+    if label.startswith("swprobe_kernel"):
+        return args[-1] == "5"
+    return args[-2:] == ["4", "1"]
 
 
 def loop_sass(lib: str, nvcc: str) -> dict:
@@ -2000,10 +2013,12 @@ def loop_sass(lib: str, nvcc: str) -> dict:
     (`script_band`), read from the SASS of the probes library `lib`
     (cuobjdump -sass, beside `nvcc`): the body of the loop that holds
     the most steps (a backward branch, its target up to it), the steps
-    it holds (one SHFL.IDX a step), instructions a step, a word and step
-    (a lane's step covers its band of R rows) and an element and step
-    (the int16 loop's word holds two columns), the REDUX, SHFL and BAR
-    instructions a step and the body's opcodes. NOPs are not counted."""
+    it holds (rows 4 and 5: one SHFL.IDX a step; swprobe: R LDS a step,
+    its reads of tr, which every level has), instructions a step, a word
+    and step (a lane's step covers its band of R rows) and an element
+    and step (the int16 loop's word holds two columns), the REDUX, SHFL,
+    LDS and BAR instructions a step and the body's opcodes. NOPs are not
+    counted."""
     tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     text = subprocess.run([tool, "-sass", lib], capture_output=True,
                           text=True, check=True).stdout
@@ -2012,6 +2027,10 @@ def loop_sass(lib: str, nvcc: str) -> dict:
         label = kernel_label(func.split("\n", 1)[0])
         if label is None or not script_band(label):
             continue
+        args = [int(a) for a in label.partition("<")[2].rstrip(">").split(",")]
+        sw = label.startswith("swprobe_kernel")
+        rows = args[-1] if sw else args[-2]
+        cols = args[0] if label.startswith("loop_kernel") else 1
         labels, code = {}, []
         pending = []
         for line in func.splitlines():
@@ -2038,17 +2057,14 @@ def loop_sass(lib: str, nvcc: str) -> dict:
                 continue
             ops = [opcode(i) for a, i in code
                    if target <= a <= addr and opcode(i) != "NOP"]
-            marks = sum(o.startswith("SHFL.IDX") for o in ops)
+            marks = (sum(o.startswith("LDS") for o in ops) / rows if sw else
+                     sum(o.startswith("SHFL.IDX") for o in ops))
             if marks and (best is None or marks > best[1]):
                 best = (ops, marks)
         if best is None:
             out[label] = None
             continue
         ops, steps = best
-        args = [int(a) for a in label.partition("<")[2].rstrip(">").split(",")]
-        loop = label.startswith("loop_kernel")
-        rows = args[-2]
-        cols = args[0] if loop else 1
         count = lambda p: sum(o.startswith(p) for o in ops) / steps
         out[label] = {"body": len(ops), "steps": steps,
                       "per_step": len(ops) / steps,
@@ -2056,6 +2072,7 @@ def loop_sass(lib: str, nvcc: str) -> dict:
                       "per_element_step": len(ops) / steps / rows / cols,
                       "redux_per_step": count("REDUX"),
                       "shfl_per_step": count("SHFL"),
+                      "lds_per_step": count("LDS"),
                       "bar_per_step": count("BAR"),
                       "opcodes": dict(sorted(
                           {o: ops.count(o) for o in set(ops)}.items()))}

@@ -28,19 +28,26 @@
 // TPU kernels carried their state through VMEM scratch across a
 // sequential grid; here it stays in registers for the whole loop.
 //
-// swprobe keeps the first design of the loops: one thread per row, the
-// block's threads column by column (thread t holds row t % S of the
-// block's column t / S), the row above's value through a double-buffered
-// shared array, and one __syncthreads a step; a block holds a few
-// columns (S x cols threads, at most 1024) and the grid splits the rest.
+// swprobe (row 6) has the same shape: one warp a column, a band of R
+// rows a lane holding the five carried arrays A-E in registers, the row
+// above's C, D and E by one __shfl_up_sync each (the column's row 0
+// takes A or C instead, by a select on lane 0's first row alone). Its
+// rolled input tr is data, not state: a warp-private copy of the column
+// in shared memory, written once, read at a rotating offset (one LDS a
+// row and step, R odd so that the reads hit distinct banks). No
+// __syncthreads, no shared state; the column max is one redux.sync.
 //
 // What bounds them: the loops (rows 4-6) do a few int32 (or int16x2)
 // ALU operations per element and step on data that never leaves the SM,
-// so at a size that fills the card they are bound by operations, and at
-// the scripts' single-tile shapes (one warp a scheduler at most for
-// rows 4 and 5, a block or two an SM for row 6) by the dependent chain
-// of steps: rows 4 and 5 wait each step for the shuffle of the row
-// above, row 6 for the barrier and the row above's value.
+// so at a size that fills the card they are bound by operations (the
+// integer pipes' issue), and at the scripts' single-tile shapes (about
+// one warp a scheduler) by one warp's issue and the dependent chain of
+// a step: rows 4 and 5 wait each step for the shuffle of the row above;
+// row 6 issues some 18-19 instructions a row and step at R = 5, its
+// next step's tr read ahead, so one warp a scheduler keeps the integer
+// pipes about as busy as a full card does. Levels 0 and 1 of row 6 are
+// bound at fill by the shared-memory pipe (one 32-lane LDS a clock an
+// SM) that their reads of tr take.
 //
 // The two copies (dynamic_sublane, int16_roll) and int16_elementwise are
 // bound by bytes, and at the scripts' shapes by the launch. They share
@@ -387,82 +394,128 @@ int32_argmax_kernel(const int* __restrict__ x, int S, int W, int steps,
   if (band.lane == 0) amax[col] = am;
 }
 
-// ---- swprobe: the SW-shaped ladder. Per tile of columns, `nstep` steps
-// in `nstep / chunk` grid steps of `chunk` (the JAX kernel's fori_loop,
+// ---- swprobe: the SW-shaped ladder. Per column, `nstep` steps in
+// `nstep / chunk` grid steps of `chunk` (the JAX kernel's fori_loop,
 // whose index s restarts at 0 in every grid step). The rolled buffer
 // rb = concat(x, x) of the JAX kernel is rolled once a step from the
-// first step on, so at step g its rows S..2S-1 are x[(r - g - 1) mod S]:
-// the kernel reads that row of x from shared memory instead of moving a
-// buffer. LEVEL 0 is the loop alone (that read, kept live, and the
-// barrier); 1 adds A's update; 2 adds B and C and the exchange of C;
-// 3 is the full SW-like step (D and E exchanged as well). A level's
-// state that it does not update stays at its initial x + k. The JAX
-// kernel rolls E after updating it, so a thread publishes its
-// pre-roll E (E1) and takes the row above's at the start of the next
-// step, together with that row's C and D.
-template <int LEVEL>
-__global__ void swprobe_kernel(const int* __restrict__ x, int S, int W,
-                               int nstep, int chunk, int* __restrict__ out) {
+// first step on, so at step g its rows S..2S-1 are tr[r] = x[(r - g - 1)
+// mod S]. LEVEL 0 is the loop alone (that read, kept live); 1 adds A's
+// update; 2 adds B and C and the exchange of C; 3 is the full SW-like
+// step (D and E exchanged as well). A level's state that it does not
+// update stays at its initial x + k.
+//
+// One warp a column, lane l holding rows r0 = lR .. lR + R - 1 of A-E in
+// registers (`with_odd_band`). C and D take their row above's value of
+// the step before, and E the row above's E1 (this step's E before the
+// roll), so within a step the rows of a band do not depend on each
+// other: rows 1..R-1 take theirs from the lane's own registers
+// (descending k, in place), row 0 from the lane before by one
+// __shfl_up_sync each, and the column's row 0 (lane 0, k = 0) takes A
+// (C for E) instead: three shuffles a step at level 3, one at level 2.
+// No wrap: the row above row 0 is never read, so dead rows (from S on)
+// feed only dead rows, and the column max skips them.
+//
+// tr is data, not state: each warp keeps its column of x in shared
+// memory twice over, xs[i] = x[i mod S] for i < S + 32 R, written once
+// before the loop. At step g row r reads xs[b + r] with b = (-g - 1)
+// mod S, so lane l's R reads are xs[b + lR + k], one LDS each at an
+// immediate offset from one address a step. R odd (1, or 2^p + 1) puts
+// the 32 lanes of one k on 32 distinct banks (stride R, coprime with 32)
+// with no swizzle arithmetic, where an even R would conflict R ways.
+template <int LEVEL, int R>
+__global__ void __launch_bounds__(32 * LOOP_WARPS, 1)
+swprobe_kernel(const int* __restrict__ x, int S, int W, int nstep,
+               int chunk, int* __restrict__ out) {
   extern __shared__ int sh_sw[];
-  const int nt = blockDim.x;
-  const int cols = nt / S;
-  int* xs = sh_sw;                 // [cols][S] the block's columns of x
-  int* sc = xs + nt;               // [2][nt] C of the step
-  int* sd = sc + 2 * nt;           // [2][nt] D
-  int* se = sd + 2 * nt;           // [2][nt] E before the roll
-  int* cmax = se + 2 * nt;         // [cols]
-
-  const int tid = threadIdx.x;
-  const int r = tid % S;
-  const int c = tid / S;
-  const int col = blockIdx.x * cols + c;
-  const bool live = col < W;
-  const int above = r == 0 ? tid + S - 1 : tid - 1;
-  const int* xcol = xs + c * S;
-  const int xv = live ? x[static_cast<size_t>(r) * W + col] : 0;
-  xs[tid] = xv;
-  int A = xv, B = wadd(xv, 1), C = wadd(xv, 2), D = wadd(xv, 3),
-      E = wadd(xv, 4);
-  // the state before step 0 stands in slot 1, "the step before"
-  sc[nt + tid] = C;
-  sd[nt + tid] = D;
-  if (r == 0) cmax[c] = INT_MIN;
-  __syncthreads();
-
-  int k = r;                        // row of x that tr reads: (r - g - 1) mod S
-  int s = 0;                        // the fori_loop index
+  const int warp = threadIdx.x / 32;
+  const int col = blockIdx.x * LOOP_WARPS + warp;
+  if (col >= W) return;                              // the whole warp
+  const int lane = threadIdx.x & 31;
+  const int span = S + 32 * R;
+  int* xs = sh_sw + warp * span;
+  for (int i = lane; i < span; i += 32)
+    xs[i] = x[static_cast<size_t>(i % S) * W + col];
+  __syncwarp();
+  const int r0 = lane * R;
+  const int* xl = xs + r0;
+  const bool first = lane == 0;                      // holds the column's row 0
+  int A[R], B[R], C[R], D[R], E[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    A[k] = xl[k];
+    B[k] = wadd(A[k], 1);
+    C[k] = wadd(A[k], 2);
+    D[k] = wadd(A[k], 3);
+    E[k] = wadd(A[k], 4);
+  }
+  // tr of step g + 1 is read during step g, so no step waits for its
+  // LDS; unrolled by two at levels 2-3 (by four at levels 0-1, where the
+  // chain is short) the copy from trn to tr is a renaming, not moves
+  int b = S - 1;                                      // (-g - 1) mod S
+  int s = 0;                                          // the fori_loop index
+  int trn[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) trn[k] = xl[b + k];
+#pragma unroll(LEVEL >= 2 ? 2 : 4)
   for (int g = 0; g < nstep; ++g) {
-    k = k == 0 ? S - 1 : k - 1;
-    const int tr = xcol[k];
-    const int prev = ((g + 1) & 1) * nt;          // slot of step g - 1
-    if (LEVEL == 0) asm volatile("" ::"r"(tr));
-    if (LEVEL >= 3 && g > 0) E = r == 0 ? C : se[prev + above];
+    const int* t = xl + b;
+    int tr[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) tr[k] = trn[k];
+    b = b == 0 ? S - 1 : b - 1;
+#pragma unroll
+    for (int k = 0; k < R; ++k) trn[k] = xl[b + k];
+    if (LEVEL == 0) {
+      // volatile loads: ptxas drops a load whose value only an empty asm
+      // reads, and with it the whole loop
+#pragma unroll
+      for (int k = 0; k < R; ++k)
+        asm volatile("" ::"r"(static_cast<const volatile int*>(t)[k]));
+    }
     if (LEVEL >= 1) {
-      A = max(wadd(A, -1), tr);
-      if (r == 0) A = tr;
+#pragma unroll
+      for (int k = 0; k < R; ++k) A[k] = max(wadd(A[k], -1), tr[k]);
+      if (first) A[0] = tr[0];
     }
     if (LEVEL >= 2) {
-      B = max(wadd(B, -2), wadd(A, -7));
-      C = max(r == 0 ? A : sc[prev + above], B);
-      A = C > A ? C : A;
+      const int upC = __shfl_up_sync(FULL_MASK, C[R - 1], 1);
+#pragma unroll
+      for (int k = 0; k < R; ++k) B[k] = max(wadd(B[k], -2), wadd(A[k], -7));
+#pragma unroll
+      for (int k = R - 1; k > 0; --k) C[k] = max(C[k - 1], B[k]);
+      C[0] = max(first ? A[0] : upC, B[0]);
+#pragma unroll
+      for (int k = 0; k < R; ++k) A[k] = max(A[k], C[k]);
     }
     if (LEVEL >= 3) {
-      D = max(r == 0 ? A : sd[prev + above], wadd(C, -1));
-      const int e1 = D > E ? D : E;
-      A = max(wadd(A, tr == A ? 1 : -4), D);
-      B = (r >= 1 && r <= s) ? B : e1;
-      C = max(C, 0);
-      se[(g & 1) * nt + tid] = e1;
+      const int upD = __shfl_up_sync(FULL_MASK, D[R - 1], 1);
+#pragma unroll
+      for (int k = R - 1; k > 0; --k) D[k] = max(D[k - 1], wadd(C[k], -1));
+      D[0] = max(first ? A[0] : upD, wadd(C[0], -1));
+      // row r0 + k keeps B iff 1 <= r0 + k <= s
+      const int u = s - r0;
+      const int e1_last = max(D[R - 1], E[R - 1]);
+#pragma unroll
+      for (int k = R - 1; k >= 0; --k) {
+        const int e1 = k == R - 1 ? e1_last : max(D[k], E[k]);
+        A[k] = max(wadd(A[k], tr[k] == A[k] ? 1 : -4), D[k]);
+        B[k] = k <= u && (k > 0 || !first) ? B[k] : e1;
+        C[k] = max(C[k], 0);
+        if (k < R - 1) E[k + 1] = e1;
+      }
+      const int upE = __shfl_up_sync(FULL_MASK, e1_last, 1);
+      E[0] = first ? C[0] : upE;
+      s = s + 1 == chunk ? 0 : s + 1;
     }
-    if (LEVEL >= 2) sc[(g & 1) * nt + tid] = C;
-    if (LEVEL >= 3) sd[(g & 1) * nt + tid] = D;
-    __syncthreads();
-    s = s + 1 == chunk ? 0 : s + 1;
   }
-  if (LEVEL >= 3 && nstep > 0) E = r == 0 ? C : se[((nstep - 1) & 1) * nt + above];
-  if (live) atomicMax(&cmax[c], wadd(wadd(wadd(A, B), wadd(C, D)), E));
-  __syncthreads();
-  if (r == 0 && live) out[col] = cmax[c];
+  const int live = ::min(::max(S - r0, 0), R);
+  int m = INT_MIN;
+#pragma unroll
+  for (int k = 0; k < R; ++k)
+    if (k < live)
+      m = max(m, wadd(wadd(wadd(A[k], B[k]), wadd(C[k], D[k])), E[k]));
+  m = __reduce_max_sync(FULL_MASK, m);
+  if (first) out[col] = m;
 }
 
 // ---- mosaic_int16_repro: int16 max(x + 3, x - 2), 8 lanes a thread.
@@ -519,9 +572,6 @@ cudaError_t map_blocks(long long bytes, int device, int* blocks) {
   return cudaSuccess;
 }
 
-// columns a block of swprobe holds: S x cols threads, at most 1024
-int block_cols(int S) { return std::max(1, std::min(4, 1024 / S)); }
-
 int grid_for(int groups, int cols) { return (groups + cols - 1) / cols; }
 
 // f(std::integral_constant<int, R>()) for the band of S rows a lane: the
@@ -534,6 +584,27 @@ void with_band(int S, F f) {
   else if (S <= 256) f(std::integral_constant<int, 8>());
   else if (S <= 512) f(std::integral_constant<int, 16>());
   else f(std::integral_constant<int, 32>());
+}
+
+// f(std::integral_constant<int, R>()) for swprobe's band of S rows a
+// lane: the least R of {1, 3, 5, 9, 17, 33} with 32 R >= S
+// (1 <= S <= 1024); odd, so a step's reads of x hit distinct banks
+template <class F>
+void with_odd_band(int S, F f) {
+  if (S <= 32) f(std::integral_constant<int, 1>());
+  else if (S <= 96) f(std::integral_constant<int, 3>());
+  else if (S <= 160) f(std::integral_constant<int, 5>());
+  else if (S <= 288) f(std::integral_constant<int, 9>());
+  else if (S <= 544) f(std::integral_constant<int, 17>());
+  else f(std::integral_constant<int, 33>());
+}
+
+template <int LEVEL, int R>
+void launch_swprobe(int blocks, cudaStream_t st, const int* x, int S, int W,
+                    int nstep, int chunk, int* out) {
+  const size_t smem = sizeof(int) * LOOP_WARPS * (S + 32 * R);
+  swprobe_kernel<LEVEL, R><<<blocks, 32 * LOOP_WARPS, smem, st>>>(
+      x, S, W, nstep, chunk, out);
 }
 
 template <int LANES, bool DPX, int R>
@@ -619,21 +690,22 @@ int probe_int32_argmax(const void* x, int S, int W, int steps, void* out,
 int probe_swprobe(const void* x, int S, int W, int nstep, int chunk,
                   int level, void* out, int device, void* stream) {
   if (S <= 0 || W <= 0) return 0;
+  if (S > 32 * 32 || level < 0 || level > 3 || (nstep > 0 && chunk < 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   OnDevice on(device);
-  const int cols = block_cols(S);
-  const int nt = S * cols;
-  const size_t smem = (7 * static_cast<size_t>(nt) + cols) * sizeof(int);
-  const int blocks = grid_for(W, cols);
+  const int blocks = grid_for(W, LOOP_WARPS);
   auto st = static_cast<cudaStream_t>(stream);
   auto xi = static_cast<const int*>(x);
   auto o = static_cast<int*>(out);
-  switch (level) {
-    case 0: swprobe_kernel<0><<<blocks, nt, smem, st>>>(xi, S, W, nstep, chunk, o); break;
-    case 1: swprobe_kernel<1><<<blocks, nt, smem, st>>>(xi, S, W, nstep, chunk, o); break;
-    case 2: swprobe_kernel<2><<<blocks, nt, smem, st>>>(xi, S, W, nstep, chunk, o); break;
-    case 3: swprobe_kernel<3><<<blocks, nt, smem, st>>>(xi, S, W, nstep, chunk, o); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  with_odd_band(S, [&](auto band) {
+    constexpr int R = decltype(band)::value;
+    switch (level) {
+      case 0: launch_swprobe<0, R>(blocks, st, xi, S, W, nstep, chunk, o); break;
+      case 1: launch_swprobe<1, R>(blocks, st, xi, S, W, nstep, chunk, o); break;
+      case 2: launch_swprobe<2, R>(blocks, st, xi, S, W, nstep, chunk, o); break;
+      default: launch_swprobe<3, R>(blocks, st, xi, S, W, nstep, chunk, o); break;
+    }
+  });
   return static_cast<int>(cudaGetLastError());
 }
 

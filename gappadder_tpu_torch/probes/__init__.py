@@ -32,9 +32,8 @@ launches = dict.fromkeys(("dynamic_sublane", "int16_loop", "loop_yardstick",
                           "int32_argmax", "swprobe", "int16_elementwise",
                           "int16_roll"), 0)
 
-# the loops' most rows: the int16 and argmax loops hold a column in one
-# warp, 32 lanes of at most 32 rows; swprobe in one block of <= 1024
-# threads
+# the loops' most rows: the int16, argmax and swprobe loops hold a
+# column in one warp, 32 lanes of at most 32 rows (swprobe 33)
 MAX_ROWS = 1024
 
 # each C entry's arguments before the device index and the stream: p a
@@ -94,7 +93,7 @@ def inputs(entry: str, device, dtype: torch.dtype, *arrays):
 
 def check_rows(entry: str, x: torch.Tensor) -> None:
     """x is [S, W] with 1 <= S <= MAX_ROWS: the loop kernels hold a
-    column's rows in one warp (one block for swprobe)."""
+    column's rows in one warp."""
     if x.dim() != 2:
         raise ValueError(f"{entry}: expected [S, W], got {tuple(x.shape)}")
     S = x.shape[0]

@@ -149,7 +149,9 @@ def sw_edge_pairs(seed, B=24, Lq=33, Lt=40):
 # integers, so that the int16 loop's h + 1 wraps (near_int16_max), its
 # e - 1 wraps (near_int16_min) and its int16 cast wraps (beyond_int16);
 # the argmax loop meets many equal maxima (small_ties) and distinct
-# ints that are equal as float32 (float_ties); int16_full spans int16
+# ints that are equal as float32 (float_ties); int16_full spans int16;
+# near_int32_max makes swprobe's int32 adds wrap (x + 4, A + 1, the
+# sum of A-E)
 PROBE_INPUTS = {
     "zeros": (0, 1, np.int32),
     "near_int16_max": (32700, 32768, np.int32),
@@ -158,10 +160,19 @@ PROBE_INPUTS = {
     "small_ties": (0, 3, np.int32),
     "float_ties": (-(1 << 29), 1 << 29, np.int32),
     "int16_full": (-(1 << 15), 1 << 15, np.int16),
+    "near_int32_max": ((1 << 31) - 200, 1 << 31, np.int32),
 }
 INT16_LOOP_INPUTS = ("zeros", "near_int16_max", "near_int16_min",
                      "beyond_int16")
 ARGMAX_INPUTS = ("zeros", "small_ties", "float_ties")
+# swprobe's band edges (S, W): one row; a band of one row a lane with
+# lanes past the column (5); R = 3 with lanes past it (33); R = 5 whole
+# lanes (100), the script's 136 rows (lane 27 holds one live row) and
+# every slot live (160); R = 33 (1024: lane 31 holds one live row); on
+# negative inputs (C's clamp at 0 decides) and near INT32_MAX
+SWPROBE_SHAPES = ((1, 3), (5, 9), (33, 12), (100, 3), (136, 6), (160, 2),
+                  (1024, 2))
+SWPROBE_INPUTS = ("near_int16_min", "near_int32_max")
 
 
 def probe_input(name: str, shape, seed: int = 0) -> np.ndarray:

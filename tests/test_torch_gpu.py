@@ -22,7 +22,8 @@ from gappadder_tpu_torch.probes import int16_repro, swprobe
 from gappadder_tpu_torch.probes import kernel_experiments as ke
 from gappadder_tpu_torch.testcases import (ARGMAX_INPUTS, INT16_LOOP_INPUTS,
                                            SORT_CASES, SW_EDGE_SHAPES,
-                                           SW_STRIP_SHAPES, driver_workspace,
+                                           SW_STRIP_SHAPES, SWPROBE_INPUTS,
+                                           SWPROBE_SHAPES, driver_workspace,
                                            probe_input, sort_case,
                                            sw_edge_pairs, sw_strip_pairs,
                                            sw_test_pairs)
@@ -419,11 +420,21 @@ def test_probe_int32_argmax_matches_plain(cuda, case, S, W):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("S,W", [(swprobe.S, swprobe.NBT * swprobe.TB),
+                                 *SWPROBE_SHAPES])
 @pytest.mark.parametrize("level", swprobe.LEVELS)
-def test_probe_swprobe_matches_plain(cuda, level):
-    x = torch.from_numpy(swprobe.script_input(seed=level)).to(cuda)
-    _same_and_counted("swprobe", lambda: swprobe.run(x, level, device=cuda),
-                      lambda: swprobe.run_plain(x, level))
+def test_probe_swprobe_matches_plain(cuda, level, S, W):
+    """Every level over the script's 1152 steps: the script's input at
+    its shape, then negative inputs (C's clamp) and inputs near
+    INT32_MAX (every add wraps)."""
+    xs = [swprobe.script_input(seed=level)] if S == swprobe.S and \
+        W == swprobe.NBT * swprobe.TB else []
+    xs += [probe_input(name, (S, W), level + S) for name in SWPROBE_INPUTS]
+    for x in xs:
+        x = torch.from_numpy(x).to(cuda)
+        _same_and_counted("swprobe",
+                          lambda: swprobe.run(x, level, device=cuda),
+                          lambda: swprobe.run_plain(x, level))
 
 
 @pytest.mark.gpu

@@ -25,10 +25,11 @@ import torch
 from gappadder_tpu_torch import probes
 from gappadder_tpu_torch.ops import cuda_build, psort, sw_cuda
 from gappadder_tpu_torch.ops.sw_host import BWA_PARAMS, SWParams
-from gappadder_tpu_torch.probes import int16_repro
+from gappadder_tpu_torch.probes import int16_repro, swprobe
 from gappadder_tpu_torch.probes import kernel_experiments as ke
 from gappadder_tpu_torch.testcases import (ARGMAX_INPUTS, INT16_LOOP_INPUTS,
                                            SW_EDGE_SHAPES, SW_STRIP_SHAPES,
+                                           SWPROBE_INPUTS, SWPROBE_SHAPES,
                                            probe_input, sort_case,
                                            sw_edge_pairs, sw_strip_pairs,
                                            sw_test_pairs)
@@ -626,3 +627,56 @@ def test_emulated_argmax_loop_wraps_int32_and_picks_the_first_float_tie(
                  am.data_ptr())
     want_out, want_am = ke.exp_int32_loop_with_argmax_plain(x, 6)
     assert torch.equal(out, want_out) and torch.equal(am, want_am)
+
+
+# swprobe's band edges (testcases.SWPROBE_SHAPES), each with a number of
+# steps: nstep / 8 steps a grid step, so the fori index s restarts 8
+# times and B's row mask moves with it
+SWPROBE_STEPS = (16, 24, 32, 40, 48, 40, 48)
+
+
+def _emulated_swprobe(lib, x, level, nstep):
+    """swprobe.run's launch on CPU buffers: the output starts as garbage
+    and the guard elements after it stay untouched."""
+    S, W = x.shape
+    buf = torch.full((W + 8,), -12345, dtype=torch.int32)
+    _probe_entry(lib, "swprobe", x.data_ptr(), S, W, nstep,
+                 nstep // swprobe.GRID_STEPS, level, buf.data_ptr())
+    assert (buf[W:] == -12345).all()
+    return buf[:W].view(1, W)
+
+
+@pytest.mark.parametrize("S,W,nstep", [
+    (S, W, n) for (S, W), n in zip(SWPROBE_SHAPES, SWPROBE_STEPS)],
+    ids=lambda v: str(v))
+def test_emulated_swprobe_matches_plain(emulated, S, W, nstep):
+    """The warp-band ladder at every level: row 0's selects on lane 0,
+    the shuffled C, D and E at band edges, tr's rotating read across the
+    wrap from row S - 1 to row 0, dead rows kept out of the column max,
+    C's clamp at 0 on negative inputs, B's row mask (rows 1..s, which
+    decide the max of the narrow shapes' columns) and int32 wrapping
+    near INT32_MAX."""
+    lib = emulated("probes")
+    for name in ("beyond_int16", *SWPROBE_INPUTS):
+        x = torch.from_numpy(probe_input(name, (S, W), S + W))
+        for level in swprobe.LEVELS:
+            got = _emulated_swprobe(lib, x, level, nstep)
+            assert torch.equal(got, swprobe.run_plain(x, level, nstep)), (
+                name, level)
+
+
+def test_emulated_swprobe_refuses_what_it_does_not_take(emulated):
+    """More than 1024 rows, a level outside 0-3 or steps with no grid
+    step return cudaErrorInvalidValue and write nothing."""
+    lib = emulated("probes")
+    fn = lib.probe_swprobe
+    fn.argtypes = [probes._CTYPES[c] for c in probes._ARGS["swprobe"]] + [
+        ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    x = torch.zeros((1025, 4), dtype=torch.int32)
+    out = torch.full((4,), 77, dtype=torch.int32)
+    for S, nstep, chunk, level in ((1025, 8, 1, 3), (8, 8, 1, 4),
+                                   (8, 8, 1, -1), (8, 8, 0, 3)):
+        assert fn(x.data_ptr(), S, 4, nstep, chunk, level, out.data_ptr(),
+                  0, None) == 1
+    assert (out == 77).all()

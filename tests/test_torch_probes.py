@@ -268,3 +268,16 @@ def test_probe_wrappers_refuse_other_dtypes_on_the_cpu():
         ke.exp_dynamic_sublane(np.zeros((4, 4), np.int16), 1, device="cpu")
     with pytest.raises(ValueError, match=r"\[S, W\]"):
         int16_repro.roll(np.zeros(4, np.int16), device="cpu")
+
+
+def test_swprobe_wraps_as_pallas_near_int32_max(kernels):
+    """Near INT32_MAX every int32 add of the ladder wraps (x + 4, A + 1,
+    the sum of A-E): level 3's plain twin wraps as the Pallas kernel
+    does."""
+    x = probe_input("near_int32_max", (swprobe.S, swprobe.NBT * swprobe.TB),
+                    seed=5)
+    want = _pallas(kernels["swprobe3"], x)
+    got = swprobe.run(x, 3, device="cpu").numpy()
+    np.testing.assert_array_equal(got, want)
+    sums = x.astype(np.int64) * 5 + 10
+    assert (sums > np.iinfo(np.int32).max).all()     # the initial sum wraps
