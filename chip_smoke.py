@@ -48,7 +48,18 @@ the kernels in its trace, the non-fused Assembly batch writes the fused
 run's files with every SW and sort call shape held to the plain
 version, and the tools on the card equal the CPU; the `cli_time` line
 gives the CLI's per-stage seconds, Evaluate's parts and the non-fused
-k-mer merge's sort shapes.
+k-mer merge's sort shapes. The chain's config sets `tpu.mesh_shape` [2],
+which one process on one card runs unsharded. Then the multi-device
+runs: one process with two shards on the card (phase 14: the production
+step through `make_slice_step` over a mesh of two shards of cuda:0 and
+the production Assembly batch over it, gap for gap equal to the
+one-shard runs, every SW and sort call shape held to the plain version,
+the two steps timed in turns), and two processes on the card (phase 15:
+`parallel/mp_slice_worker.py` at the production shape equal to phase
+14, and the CLI's `-c All --coordinator` on the chain's files, split
+over the mesh, gloo between the ranks, writing phase 13's workspace
+byte for byte; in every rank of both, every SW and sort call shape held
+to the plain version).
 
 Prints JSON lines along the way; the line before the last is the
 `kernels` record and the last line is
@@ -256,19 +267,20 @@ def patched(module, name, value):
 
 
 @contextlib.contextmanager
-def recording_sw(swutil):
-    """Route swutil's SW kernel calls as before, keeping a copy of each
-    call's inputs: yields a list of (q, qlen, t, tlen, params, mode,
-    end_slack)."""
+def recording_sw(module):
+    """Route `module`'s SW kernel calls (its `sw_batch_cuda`: swutil's,
+    or the step's in parallel/slice.py) as before, keeping a copy of
+    each call's inputs: yields a list of (q, qlen, t, tlen, params,
+    mode, end_slack)."""
     calls = []
-    inner = swutil.sw_batch_cuda
+    inner = module.sw_batch_cuda
 
     def record(q, qlen, t, tlen, params, mode="local", end_slack=0):
         calls.append((q.clone(), qlen.clone(), t.clone(), tlen.clone(),
                       params, mode, end_slack))
         return inner(q, qlen, t, tlen, params, mode, end_slack)
 
-    with patched(swutil, "sw_batch_cuda", record):
+    with patched(module, "sw_batch_cuda", record):
         yield calls
 
 
@@ -675,9 +687,9 @@ def main() -> int:
     # (sort: CUDA launches a call at each shape, `sort_time`)
     hand = {"sort": round(sort["step_cuda_launches"]),
             "sw": launches["step"]["sw"]}
-    prof = profile_step(sl, pdims, pin, hand)
+    prof = profile_step(step, hand)
     with patched(psort, "bitonic_sort", psort.bitonic_sort_plain):
-        prof_plain = profile_step(sl, pdims, pin, dict(hand, sort=0))
+        prof_plain = profile_step(step, dict(hand, sort=0))
     emit(phase="step_profile", **prof,
          busy_share=prof["device_busy_ms"] / prof["profiled_wall_ms"],
          plain_sort=prof_plain, smi=card)
@@ -744,6 +756,30 @@ def main() -> int:
              nonfused_launches=launches["nonfused"])
         emit(phase="cli_time", **clirun, phase_s=time.perf_counter() - t,
              smi=card)
+
+        # ---- phase 14: one process, two shards on the one card ---------
+        t = time.perf_counter()
+        shards = shards_phase(dev, pdims, pin, res, (
+            cfg, batch, per_gap, readsets, R, L, md, contigs), reset_counts,
+            read_counts)
+        launches["shards"] = shards["launches"]
+        emit(phase="shards", **shards["check"], launches=launches["shards"])
+        emit(phase="shards_time", step_ms=shards["time"],
+             issue_ms=shards["issue_ms"], profile=shards["profile"],
+             phase_s=time.perf_counter() - t, smi=card)
+
+        # ---- phase 15: two processes on the one card (gloo) ------------
+        t = time.perf_counter()
+        mproc = multiprocess_phase(root, chain, clirun, shards)
+        # rank 0's counts; the ranks launch no probe kernel
+        none = {k: 0 for k in launches["shards"]}
+        launches["multiprocess"] = dict(none, **mproc["launches"])
+        launches["multiprocess_cli"] = dict(none, **mproc["cli_launches"])
+        emit(phase="multiprocess", **mproc["check"],
+             launches=launches["multiprocess"],
+             cli_launches=launches["multiprocess_cli"])
+        emit(phase="multiprocess_time", **mproc["time"],
+             phase_s=time.perf_counter() - t, smi=card)
 
     def copy_fields(r):
         """Rows 3 and 7: where bytes set the time, the odd shape, the
@@ -1155,6 +1191,8 @@ def install_collect_clock(clock, stack, ws, collect, preprocess, gapscan,
     two synchronisations of the card) and count what they see: records
     decoded, focal candidates, the clip / disc / unmap hits of pass 1,
     pass 2's entries."""
+    from gappadder_tpu_torch.parallel import mp
+
     def wrap(module, name, label, after=None):
         stack.enter_context(patched(module, name, clock.timed(
             label, getattr(module, name), after)))
@@ -1180,12 +1218,14 @@ def install_collect_clock(clock, stack, ws, collect, preprocess, gapscan,
                        else "npz_writes"), ws.save_arrays)))
     step, low = collect.make_extract_step, collect._lowmapq_compact
 
-    def make(dims, ecap=1 << 15):
-        fn = step(dims, ecap)
+    def make(dims, mesh, ecap=1 << 15):
+        fn = step(dims, mesh, ecap)
 
         def counted(mat, *windows):
             packed, c3 = fn(mat, *windows)
-            for k, v in zip(("clip", "disc", "unmap"), c3.tolist()):
+            # each shard's three counts, summed over the shards
+            for k, v in zip(("clip", "disc", "unmap"),
+                            mp.to_np(c3).reshape(-1, 3).sum(0).tolist()):
                 add(k, v)
             return packed, c3
         return counted
@@ -1223,6 +1263,11 @@ def chain_phase(dev, reset_counts, read_counts, tmp) -> dict:
     t = time.perf_counter()
     cfg, truth = collect_scenario(os.path.join(tmp, "scenario"), seed=0)
     sim_ms = (time.perf_counter() - t) * 1e3
+    # mesh [2]: one process on one card holds one shard, so the chain
+    # runs unsharded here and in phase 13; phase 15's two processes run
+    # the same config (and config hash) split over the mesh
+    cfg = dataclasses.replace(cfg, tpu=dataclasses.replace(
+        cfg.tpu, mesh_shape=(2,)))
     cfgs = {w: dataclasses.replace(cfg, working_folder=os.path.join(
         tmp, w)) for w in ("card", "cpu")}
     ws = Workspace(cfgs["card"].workdir)
@@ -1350,6 +1395,8 @@ def chain_phase(dev, reset_counts, read_counts, tmp) -> dict:
         "rescued_reads": {str(g): n for g, n in dclock.rescued.items()},
         "hq_pseudo_contigs": dclock.counts.get("hq_pseudo_contigs", 0),
         "filled_scaffolds_equal_truth": True,
+        "sha256": {f: sha256(ws.path(f))
+                   for f in DRIVER_FILES + ("filled_scaffolds.fa",)},
         "collect_sort_shapes_equal_plain": held_collect,
         "driver_sw_shapes_equal_plain": held_sw,
         "driver_sort_shapes_equal_plain": held_sort}
@@ -1371,6 +1418,12 @@ def chain_phase(dev, reset_counts, read_counts, tmp) -> dict:
     return {"check": check, "time": timing, "launches": launches,
             "collect_launches": collect_launches, "cfg": cfgs["card"],
             "truth": truth}
+
+
+def sha256(path) -> str:
+    import hashlib
+    with open(path, "rb") as fh:
+        return hashlib.sha256(fh.read()).hexdigest()
 
 
 def trace_mentions(path, words, chunk=1 << 24) -> dict:
@@ -1633,6 +1686,282 @@ def cli_phase(root, chain, dev, reset_counts, read_counts) -> dict:
                 "phase12_hooked": chain["time"]["driver_ms"]},
             "nonfused_driver_ms": nf_ms, "nonfused_stage_ms": clock.ms,
             "nonfused_merge_sorts": merge_rows}
+
+
+def shards_phase(dev, pdims, pin, res, asm, reset_counts,
+                 read_counts) -> dict:
+    """Phase 14, one process with two shards on the one card: the
+    production step through `make_slice_step` over
+    `make_mesh(devices=[dev, dev])` (64 gaps, 32 a shard) and the
+    production Assembly batch over the same mesh, the kernel counts
+    reset before and read after both. Every per-gap output of the step
+    (row shard * 32 + slot of gap shard + 2 * slot, `home_of`) equals
+    phase 5's one-shard step's, counts[:7], hist and the total received
+    entries too, and counts[7] (a shard's largest router demand) times
+    2 is at least phase 5's; the batch equals phase 7's; every SW and
+    sort call shape of both runs equals the plain version on its own
+    inputs. Then the 2-shard step and phase 5's step by CUDA events in
+    turns (one, two, two, one) and one profiled 2-shard step. `asm` is
+    phase 7's (cfg, batch, per_gap, readsets, R, L, md, contigs)."""
+    from gappadder_tpu_torch.ops import psort, sw_cuda
+    from gappadder_tpu_torch.parallel import mesh as pmesh, mp
+    from gappadder_tpu_torch.parallel import slice as sl
+    from gappadder_tpu_torch.parallel.mp_slice_worker import summarize
+    from gappadder_tpu_torch.pipeline import fused
+    cfg, batch, per_gap, readsets, R, L, md, contigs = asm
+    N = 2
+    mesh = pmesh.make_mesh(shape=(N,), axes=("dp",), devices=[dev, dev])
+    dims, args = sl.example_data(N, **dict(
+        PRODUCTION, gaps_per_shard=PRODUCTION["gaps_per_shard"] // N))
+    step = sl.make_slice_step(mesh, dims)
+    placed = sl.place_args(mesh, args)
+    reset_counts()
+    with recording_sorts(psort) as sorts, recording_sw(sl) as sws:
+        out = [mp.to_np(o) for o in step(*placed)]
+        contigs2 = fused.assemble_batch(cfg, batch, per_gap, readsets, R, L,
+                                        md, device=dev, mesh=mesh)
+        torch.cuda.synchronize()
+    launches = read_counts()
+    if min(launches["sw"], launches["sort"]) < 1:
+        raise AssertionError(f"the 2-shard path launched {launches}")
+    counts = out[0]
+    sl.check_overflow(dims, counts)
+    if counts[:7].tolist() != res[0][:7].tolist() or \
+            counts[7] * N < res[0][7] or \
+            not np.array_equal(out[1], res[1]) or \
+            out[2].sum() != res[2].sum():
+        raise AssertionError(f"2-shard step: counts {counts.tolist()} / "
+                             f"{res[0].tolist()}, hist or n_recv differ")
+    shard, slot = sl.home_of(np.arange(dims.n_gaps), N)
+    rows = shard * dims.gaps_per_shard + slot
+    names = ("counts", "hist", "n_recv", "n_reads", "rowtab", "hqtab",
+             "useq", "ulen", "ucnt", "score", "qend", "tend")
+    for nm, a, b in list(zip(names, out, res))[3:]:
+        if a.dtype != b.dtype or not np.array_equal(a[rows], b):
+            raise AssertionError(f"2-shard step: {nm} differs from the "
+                                 "one-shard step's")
+    if not same_contigs(contigs2, contigs):
+        raise AssertionError("2-shard Assembly batch != phase 7's")
+    sw_err = max(check_sw(sw_cuda, *c[:4], *c[4:], dev) for c in sws)
+    held_sorts = []
+    for (shape, nk, npay), (n, ops) in sorted(sorts.items()):
+        check_sort(psort, ops, nk)
+        held_sorts.append([list(shape), nk, npay, n])
+    held_sw = sorted({(tuple(c[0].shape), c[2].shape[1]) for c in sws})
+    del sorts, sws
+
+    one = lambda: sl.run_step(pdims, pin, device=dev)
+    two = lambda: step(*placed)
+    two()
+    windows = {"one_shard": [], "two_shards": []}
+    for name in ("one_shard", "two_shards", "two_shards", "one_shard"):
+        windows[name].append(step_window(
+            one if name == "one_shard" else two, STEPS_PER_WINDOW))
+    prof = profile_one_step(two, top=5)
+    return {"check": {
+        "n_shards": N, "gaps_per_shard": dims.gaps_per_shard,
+        "step_equal_one_shard": True, "counts": counts.tolist(),
+        "one_shard_counts": res[0].tolist(),
+        "assembly_batch_equal_phase7": True,
+        "sw_shapes_equal_plain": [[list(q), t] for q, t in held_sw],
+        "sw_max_abs_err": sw_err, "sort_shapes_equal_plain": held_sorts},
+        "launches": launches, "summary": summarize(dims, out),
+        "time": {k: [w["ms_per_step"] for w in v]
+                 for k, v in windows.items()},
+        "issue_ms": {k: [w["issue_ms_per_step"] for w in v]
+                     for k, v in windows.items()},
+        "profile": {k: prof[k] for k in ("device_busy_ms", "device_kernels",
+                                         "profiled_wall_ms",
+                                         "hand_kernels")}}
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(cmds, timeout: float, threads: int, logdir) -> list:
+    """Start every rank with `threads` intra-op threads, its output to
+    a file under `logdir`, and wait for all under one timeout; kill them
+    all as soon as one fails or the timeout passes, and raise. Returns
+    each rank's output."""
+    env = dict(os.environ, OMP_NUM_THREADS=str(threads))
+    env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(logdir, exist_ok=True)
+    logs = [open(os.path.join(logdir, f"rank{i}.log"), "w+")
+            for i in range(len(cmds))]
+    procs = [subprocess.Popen(c, env=env, stdout=fh,
+                              stderr=subprocess.STDOUT)
+             for c, fh in zip(cmds, logs)]
+    deadline = time.monotonic() + timeout
+    killed = []
+    try:
+        while any(p.poll() is None for p in procs) and \
+                all(p.returncode in (None, 0) for p in procs) and \
+                time.monotonic() < deadline:
+            time.sleep(0.2)
+    finally:
+        for i, p in enumerate(procs):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+                killed.append(i)
+    outs = []
+    for fh in logs:
+        fh.seek(0)
+        outs.append(fh.read())
+        fh.close()
+    bad = [i for i, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        first = ([i for i in bad if i not in killed] or bad)[0]
+        raise AssertionError(
+            f"rank exit codes {[p.returncode for p in procs]}, killed "
+            f"{killed} (past {timeout} s or beside a failed rank); rank "
+            f"{first}:\n{outs[first][-4000:]}")
+    return outs
+
+
+# a rank of phase 15: held_rank(module, argv)
+RANK = ("import sys, chip_smoke; "
+        "sys.exit(chip_smoke.held_rank(sys.argv[1], sys.argv[2:]))")
+
+
+def held_rank(module: str, argv) -> int:
+    """One rank of phase 15: `module`'s main(argv) (the CLI or the
+    step's worker) with the counts set to 0 just before and read just
+    after, every SW call (in `swutil` and in the step) and sort call
+    recorded with one input set a call shape; then each shape held to
+    its plain version on those inputs on this rank's card. Prints one
+    `held {...}` line: the counts, the held shapes, the largest error.
+    A mismatch raises, so the rank exits non-zero."""
+    import importlib
+    from gappadder_tpu_torch.ops import psort, sw_cuda, swutil
+    from gappadder_tpu_torch.parallel import slice as sl
+    main = importlib.import_module(module).main
+    sw_calls: dict = {}
+
+    def recording(inner):
+        def record(q, qlen, t, tlen, params, mode="local", end_slack=0):
+            key = (mode, tuple(q.shape), tuple(t.shape), params, end_slack)
+            sw_calls[key] = (sw_calls.get(key, (0,))[0] + 1, (
+                q.clone(), qlen.clone(), t.clone(), tlen.clone()))
+            return inner(q, qlen, t, tlen, params, mode, end_slack)
+        return record
+
+    with contextlib.ExitStack() as stack:
+        for m in (swutil, sl):
+            stack.enter_context(patched(m, "sw_batch_cuda",
+                                        recording(m.sw_batch_cuda)))
+        sorts = stack.enter_context(recording_sorts(psort))
+        sw_cuda.launches = psort.launches = 0
+        rc = main(argv)
+        torch.cuda.synchronize()
+        launches = {"sw": sw_cuda.launches, "sort": psort.launches}
+    err, held_sw = 0, []
+    for (mode, qs, ts, params, slack), (n, args) in sw_calls.items():
+        err = max(err, check_sw(sw_cuda, *args, params, mode, slack, None))
+        held_sw.append([mode, list(qs), ts[1], slack, n])
+    held_sort = []
+    for (shape, nk, npay), (n, ops) in sorted(sorts.items()):
+        check_sort(psort, ops, nk)
+        held_sort.append([list(shape), nk, npay, n])
+    print("held " + json.dumps({
+        "launches": launches, "sw_shapes_equal_plain": held_sw,
+        "sort_shapes_equal_plain": held_sort, "max_abs_err": err}),
+        flush=True)
+    return rc
+
+
+def rank_holds(outs) -> list:
+    """Each rank's `held` record (held_rank's line)."""
+    return [json.loads([ln for ln in o.splitlines()
+                        if ln.startswith("held ")][0][5:]) for o in outs]
+
+
+def multiprocess_phase(root, chain, clirun, shards) -> dict:
+    """Phase 15, two processes on the one card (both drive cuda:0, so
+    the collectives go over gloo): (a) `parallel/mp_slice_worker.py` at
+    the production shape, one shard a process; its per-gap JSON equals
+    phase 14's 2-shard step's; (b) the CLI's `-c All --parity-files
+    --force` in two processes (`--coordinator`) on phase 12's files and
+    phase 13's config path, whose `tpu.mesh_shape` is [2], so Collect's
+    pass 1 and the Assembly batches split over the processes: phase
+    13's workspace moves aside and every file of the 2-process run
+    equals phase 12's direct calls' (which phase 13's `-c All` wrote too)
+    and phase 13's own, byte for byte. Every rank of both runs is a
+    `held_rank`: every SW and sort call shape it made equals the plain
+    version on that rank's own inputs. The kernels are built (phase 1);
+    the ranks load them. Each rank runs under one timeout and both are
+    killed when one fails."""
+    import shutil
+    from gappadder_tpu_torch.testcases import same_workspace
+
+    # (a) the step across two processes
+    out_json = os.path.join(root, "mp_slice.json")
+    scenario = json.dumps(dict(PRODUCTION, gaps_per_shard=PRODUCTION[
+        "gaps_per_shard"] // 2))
+    port = free_port()
+    t = time.perf_counter()
+    outs = run_ranks([[sys.executable, "-c", RANK,
+                       "gappadder_tpu_torch.parallel.mp_slice_worker",
+                       str(pid), "2", "1", str(port), out_json, "--device",
+                       "cuda", "--scenario", scenario] for pid in range(2)],
+                     600, 4, os.path.join(root, "ranks_worker"))
+    worker_s = time.perf_counter() - t
+    worker_held = rank_holds(outs)
+    with open(out_json) as fh:
+        got = json.load(fh)
+    for key in ("counts", "hist", "total_recv", "per_gap"):
+        if got[key] != shards["summary"][key]:
+            raise AssertionError(f"2-process step: {key} differs from "
+                                 "phase 14's")
+
+    # (b) the CLI across two processes, on phase 13's config path
+    cfg = chain["cfg"]
+    work = cfg.workdir.rstrip("/")
+    one = os.path.join(root, "cli_one_process")
+    shutil.move(work, one)
+    cfg_path = os.path.join(root, "config.json")
+    port = free_port()
+    t = time.perf_counter()
+    outs = run_ranks([[sys.executable, "-c", RANK, "gappadder_tpu_torch.cli",
+                       "-c", "All", "-g", cfg_path, "--parity-files",
+                       "--force", "--coordinator", f"127.0.0.1:{port}",
+                       "--num-processes", "2", "--process-id", str(pid)]
+                      for pid in range(2)], 900, 4,
+                     os.path.join(root, "ranks_cli"))
+    cli_s = time.perf_counter() - t
+    cli_held = rank_holds(outs)
+    dist_lines = [ln for o in outs for ln in o.splitlines()
+                  if ln.startswith("[dist]")]
+    backend = dist_lines[0].split(" backend ")[1].split()[0]
+    if backend != "gloo" or len(dist_lines) != 2:
+        raise AssertionError(f"2-process CLI: {dist_lines}")
+    files = same_workspace(os.path.join(root, "chain_direct"), work)
+    same_workspace(work, one, files)
+    for name, held in (("worker", worker_held), ("cli", cli_held)):
+        for r, h in enumerate(held):
+            if min(h["launches"].values()) < 1:
+                raise AssertionError(f"2-process {name} rank {r} launched "
+                                     f"{h['launches']}")
+    with open(os.path.join(work, "metrics.json")) as fh:
+        stages = json.load(fh)["stages"]
+    return {"check": {
+        "worker_equal_phase14": True, "worker_backend": got["backend"],
+        "worker_n_shards": got["n_shards"],
+        "cli_equal_one_process": True, "cli_files": len(files),
+        "cli_backend": backend, "dist_lines": dist_lines,
+        "host_staged": False,
+        # every rank's SW and sort call shapes, each equal to plain
+        "worker_ranks_held": worker_held, "cli_ranks_held": cli_held},
+        "launches": got["launches"], "cli_launches": cli_held[0]["launches"],
+        "time": {"worker_wall_s": worker_s, "worker_step_s": got["step_s"],
+                 "cli_wall_s": cli_s,
+                 "cli_stage_s": {k: v["seconds"] for k, v in stages.items()},
+                 "one_process_all_s": clirun["all_s"],
+                 "one_process_stage_s": clirun["stage_s"]}}
 
 
 def hold_driver_calls(clock, dev):
@@ -2367,8 +2696,8 @@ def block_times(sl, dims, a):
             "block4_ms": ev[2].elapsed_time(ev[3])}
 
 
-def profile_step(sl, dims, a, hand: dict, tries: int = 3, top: int = 10):
-    """One production step under torch.profiler (`profile_one_step`),
+def profile_step(fn, hand: dict, tries: int = 3, top: int = 10):
+    """One production step (fn) under torch.profiler (`profile_one_step`),
     taken again, up to `tries` runs, until the profiler saw each hand
     kernel's CUDA launches as often as the step made them (`hand`, from
     the launch counters): the tracer now and then drops events, and only
@@ -2377,7 +2706,7 @@ def profile_step(sl, dims, a, hand: dict, tries: int = 3, top: int = 10):
     kernels is kept."""
     runs = []
     for _ in range(tries):
-        r = profile_one_step(sl, dims, a, top)
+        r = profile_one_step(fn, top)
         r["complete"] = hand == {k: v["cuda_launches"]
                                  for k, v in r["hand_kernels"].items()}
         runs.append(r)
@@ -2389,10 +2718,10 @@ def profile_step(sl, dims, a, hand: dict, tries: int = 3, top: int = 10):
                 kernels_seen_by_run=[p["device_kernels"] for p in runs])
 
 
-def profile_one_step(sl, dims, a, top: int):
-    """One production step under torch.profiler: the summed duration of
-    its device kernels (one stream, so they do not overlap), their
-    count, the profiled wall time, the hand kernels' device ms and CUDA
+def profile_one_step(fn, top: int):
+    """One step (fn) under torch.profiler: the summed duration of its
+    device kernels (one stream, so they do not overlap), their count,
+    the profiled wall time, the hand kernels' device ms and CUDA
     launches, and the torch operators with the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2400,7 +2729,7 @@ def profile_one_step(sl, dims, a, top: int):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sl.run_step(dims, a)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]

@@ -5,12 +5,25 @@
     gappadder-tpu-torch -c All -g config.json
 
 The same commands, JSON config, flags, printed lines and workspace
-files as the JAX CLI, from one process on one device: the card unless
-`--device cpu` is given. Without a card and without `--device cpu` it
-stops at once; it never carries on on the CPU. Multi-process runs
-(`--coordinator`) are refused with exit code 2: they wait for the
-multi-GPU port. `--trace DIR` writes a `torch.profiler` Chrome trace of
-the stages to DIR/trace.json.
+files as the JAX CLI, on the card unless `--device cpu` is given.
+Without a card and without `--device cpu` it stops at once; it never
+carries on on the CPU. `--trace DIR` writes a `torch.profiler` Chrome
+trace of the stages to DIR/trace.json.
+
+Multi-process SPMD runs, as the JAX CLI's:
+
+    python -m gappadder_tpu_torch.cli -c All -g config.json \
+        --coordinator HOST:PORT --num-processes N --process-id I \
+        [--cpu-devices M]
+
+(or the GAPPADDER_DIST_* environment variables). Every process runs the
+whole CLI; `tpu.mesh_shape` shards the device stages over the
+processes' shards (see parallel/mp.py): with `--cpu-devices M` each
+process holds M CPU shards and the collectives go over gloo; on cards
+each process drives cuda:(I % device_count), over NCCL when no two
+processes share a card and over gloo when they do. The backend chosen
+is printed. Process 0 writes the files and metrics.json, with barriers
+at the stage boundaries.
 """
 
 from __future__ import annotations
@@ -45,22 +58,36 @@ def main(argv=None):
                         "kernels on the CPU)")
     p.add_argument("--coordinator", default=os.environ.get(
         "GAPPADDER_DIST_COORD"), metavar="HOST:PORT",
-        help="multi-process coordinator: not available in the port yet")
+        help="torch.distributed rendezvous (process 0 listens there); "
+             "enables multi-process SPMD execution of the pipeline (see "
+             "parallel/mp.py)")
     p.add_argument("--num-processes", type=int, default=int(os.environ.get(
         "GAPPADDER_DIST_NPROCS", "0")))
     p.add_argument("--process-id", type=int, default=int(os.environ.get(
         "GAPPADDER_DIST_PROCID", "0")))
     p.add_argument("--cpu-devices", type=int, default=int(os.environ.get(
-        "GAPPADDER_DIST_CPU_DEVICES", "0")))
+        "GAPPADDER_DIST_CPU_DEVICES", "0")),
+        help="with --coordinator: this many CPU shards a process, gloo "
+             "collectives (the CPU path)")
     args = p.parse_args(argv)
 
-    if args.coordinator:
-        print("gappadder-tpu-torch: multi-process runs (--coordinator) are "
-              "not ported yet; they wait for the multi-GPU port (ROADMAP "
-              "Queue 1, multi-GPU). Run without --coordinator on one "
-              "device.", file=sys.stderr)
+    # distributed init comes before the pipeline imports, as the JAX
+    # CLI's does
+    from .parallel import mp
+    if args.coordinator and not 0 <= args.process_id < args.num_processes:
+        print(f"gappadder-tpu-torch: --process-id {args.process_id} is not "
+              f"in [0, --num-processes {args.num_processes})",
+              file=sys.stderr)
         return 2
-    device = entry_device(args.device, "gappadder-tpu-torch")
+    device = entry_device("cpu" if args.coordinator and args.cpu_devices
+                          else args.device, "gappadder-tpu-torch")
+    if args.coordinator:
+        name = mp.init_distributed(args.coordinator, args.num_processes,
+                                   args.process_id,
+                                   local_cpu_devices=args.cpu_devices)
+        print(f"[dist] process {args.process_id}/{args.num_processes} "
+              f"backend {name} shards {len(mp.local_devices(device))}",
+              flush=True)
 
     from .config import load_config
     from .io import fasta
@@ -94,6 +121,7 @@ def main(argv=None):
                     write_parity_files=args.parity_files, device=device)
                 m["gaps"] = len(table["start"])
             print(f"[preprocess] {m['gaps']} gaps")
+            mp.barrier("preprocess")   # later stages read process 0's files
         if wants("Collect", "collect"):
             with METERS.stage("collect") as m:
                 rec, _ = collect.run_collect(
@@ -101,6 +129,7 @@ def main(argv=None):
                     write_parity_files=args.parity_files, device=device)
                 m["recruits"] = len(rec["gap"])
             print(f"[collect] {m['recruits']} recruited read assignments")
+            mp.barrier("collect")
         if wants("Assembly", "assembly"):
             with METERS.stage("assembly") as m:
                 fills, exts, _ = run.run_assembly_and_pick(
@@ -110,6 +139,7 @@ def main(argv=None):
             print(f"[assembly] {m['closed']} gaps closed, "
                   f"{m['extended']} extended -> "
                   f"{ws.path('picked_seqs.fa')}")
+            mp.barrier("assembly")
         if cmd == "Evaluate":
             if not args.finished:
                 print("Evaluate needs --finished <genome.fa>",
@@ -122,7 +152,9 @@ def main(argv=None):
                 m["filled"] = patch.run_patch(cfg, ws, genome=genome)
             print(f"[patch] wrote {ws.path('filled_scaffolds.fa')} "
                   f"({m['filled']} gaps filled)")
-    METERS.dump(ws.path("metrics.json"))
+            mp.barrier("patch")
+    if mp.is_primary():
+        METERS.dump(ws.path("metrics.json"))
     if cfg.verbose:
         print(METERS.report())
     return 0
@@ -136,6 +168,9 @@ def _evaluate(cfg, ws, finished_path, device):
     from .pipeline.patch import fills_from_picked
     from .pipeline.preprocess import gap_ids
     from .tools import evaluate as ev
+    from .parallel import mp
+    if not mp.is_primary():
+        return
     gaps = ws.load_arrays("gaps")
     finished = fasta.read_fasta(finished_path)
     truths = ev.extract_true_gap_seqs(

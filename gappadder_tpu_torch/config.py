@@ -3,11 +3,14 @@ it (counterpart of gappadder_tpu/config.py).
 
 The same JSON file loads into the same frozen dataclasses, field for
 field, so a configuration written for the JAX package drives the port.
-The `tpu` section is accepted unchanged. Of it only `gap_batch` (gaps
-per Assembly batch) and `fused` (False: the non-fused Assembly batch,
-the JAX package's host-glued path) keep their meaning. On one GPU
-`use_pallas`, `mesh_shape` and `mesh_axes` mean nothing: the port runs
-its hand-written kernels on the card it is given, with no mesh.
+The `tpu` section is accepted unchanged. Of it `gap_batch` (gaps per
+Assembly batch), `fused` (False: the non-fused Assembly batch, the JAX
+package's host-glued path), `read_batch` (records per classification
+batch) and `mesh_shape` (the shards Collect's classification and the
+Assembly batches split over, when the processes hold that many; see
+parallel/mesh.py) keep their meaning. `use_pallas` means nothing to the
+port, which runs its hand-written kernels; `mesh_axes` names the mesh's
+axes, which the steps flatten into one.
 """
 
 from __future__ import annotations
@@ -38,8 +41,9 @@ class Library:
 @dataclasses.dataclass(frozen=True)
 class TpuParams:
     """The JAX package's device knobs (no reference equivalent), kept so
-    the same JSON loads. Only `gap_batch` and `fused` mean anything to
-    the port; the other fields are accepted and ignored on one GPU."""
+    the same JSON loads. `mesh_shape`, `read_batch`, `gap_batch` and
+    `fused` mean to the port what they mean to the JAX package; the
+    other fields are accepted and ignored."""
     mesh_shape: tuple[int, ...] = (1,)
     mesh_axes: tuple[str, ...] = ("dp",)
     max_gaps: int = 1 << 16          # static bound for jitted gap scan

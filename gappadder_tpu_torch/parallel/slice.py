@@ -1,26 +1,35 @@
-"""The fused collect->assemble->pick step on one device (counterpart of
-gappadder_tpu/parallel/slice.py::_step).
+"""The fused collect->assemble->pick step (counterpart of
+gappadder_tpu/parallel/slice.py::_step), on one device or over the
+shards of a mesh.
 
   block 1  classify alignment records against the gap windows and
            flatten the hits into recruitment entries;
-  block 2  route the entries to the gap's home (one device: a stable
-           valid-first compaction), dedup + join them to the FASTQ name
-           table, group the reads per gap;
+  block 2  route the entries to the gap's home shard (gap % n_shards;
+           with one shard a stable valid-first compaction), dedup +
+           join them to the FASTQ name table, group the reads per gap;
   block 3  count each gap's distinct canonical k-mers for every k and
            assemble de-Bruijn unitigs for every (k, sub_k);
   block 4  score both flanks (forward and revcomp) against every contig
            with local Smith-Waterman — the hand-written CUDA kernel
            `csrc/sw.cu` on the card.
 
-`run_step` is the entry point. It returns the same 12 outputs, in the
-same order and dtypes, as the JAX step. Its state is the 28 input
-arrays of `example_data` and a `SliceDims`; `inputs_from_numpy` and
-`dims_from_fields` bring the JAX package's inputs across unchanged.
+`run_step` is the one-device entry point. It returns the same 12
+outputs, in the same order and dtypes, as the JAX step. Its state is
+the 28 input arrays of `example_data` and a `SliceDims`;
+`inputs_from_numpy` and `dims_from_fields` bring the JAX package's
+inputs across unchanged. `make_slice_step(mesh, dims)` runs the step
+over a mesh (`parallel/mesh.py`): the alignment records and name hashes
+split over the shards, the tables, read store and flanks replicated;
+counts and the k-mer histogram summed over the shards, the capacity
+indicators maxed, and the other outputs each shard's, in shard order,
+as the JAX step's shard_map outputs are. Gap g lives on shard g % N at
+local slot g // N (`home_of`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -37,12 +46,14 @@ from ..ops.sw_host import BWA_PARAMS
 from ..pipeline.assemble import (FULL, _merge_chunk, _merge_chunk_nocnt,
                                  filter_min_count)
 from . import dist
+from .mesh import DP, REP, Sharding, as_tensor, place, shard_map
 
 
 @dataclasses.dataclass(frozen=True)
 class SliceDims:
     """Static shape/config bundle of the step (the JAX SliceDims without
-    `use_pallas` and `route_impl`, which mean nothing on one GPU)."""
+    `use_pallas` and `route_impl`: the port has one SW kernel and one
+    route, the dense one)."""
     n_shards: int
     n_gaps: int          # global gap count G
     gaps_per_shard: int  # Gl = ceil(G / n_shards)
@@ -91,15 +102,7 @@ def inputs_from_numpy(args, device) -> tuple:
     """The step's 28 inputs as tensors on `device`. Numpy arrays are
     converted (uint32 columns, the name hashes, become int64 holding the
     same values); tensors are moved to `device`."""
-    out = []
-    for a in args:
-        if torch.is_tensor(a):
-            out.append(a.to(device))
-            continue
-        a = np.asarray(a)
-        a = a.astype(np.int64 if a.dtype == np.uint32 else a.dtype)
-        out.append(torch.from_numpy(a).to(device))
-    return tuple(out)
+    return tuple(as_tensor(a).to(device) for a in args)
 
 
 # ---------------------------------------------------------------------------
@@ -190,13 +193,16 @@ def _group_rows(gap, row, hq, valid, dims: SliceDims):
 
 
 def _route_and_group(entries, tbl_hi, tbl_lo, tbl_row, tbl_side,
-                     *, dims: SliceDims):
-    """Route entries home, dedup + FASTQ-join, group. Returns (rowtab,
-    hqtab, n_reads, (raw per-gap max, raw router demand))."""
+                     *, dims: SliceDims, coll=None):
+    """Route entries to their gap-home shards, dedup + FASTQ-join,
+    group. Returns (rowtab, hqtab, n_reads, (raw per-gap max, raw router
+    demand))."""
     gap, side, hi, lo, hq, valid = entries
+    # gap-home = gap % N (no destination with one shard)
+    dest = None if coll is None else torch.remainder(gap, dims.n_shards)
     (rgap, rside, rhi, rlo, rhq), _src, n_recv = dist.route_shard(
-        (gap, side, hi, lo, hq.to(torch.int32)), valid,
-        out_cap=dims.entry_cap, fills=(-1, -1, 0, 0, -1))
+        (gap, side, hi, lo, hq.to(torch.int32)), dest, valid,
+        out_cap=dims.entry_cap, fills=(-1, -1, 0, 0, -1), coll=coll)
     g2, _s2, row2, hq2, ok2 = dedup_and_join(
         rgap, rside, rhi, rlo, rhq.to(torch.bool),
         tbl_hi, tbl_lo, tbl_row, tbl_side)
@@ -335,37 +341,70 @@ def _step(tid, pos, flag, mapq, mtid, mpos, tlen, lclip, rclip,
           wtid, wstart, wend, wgap, wedge, gap_start, gap_end,
           tbl_hi, tbl_lo, tbl_row, tbl_side,
           reads_tbl, reads_len, flank_l, flank_r, flank_ll, flank_rl,
-          *, dims: SliceDims):
-    if dims.n_shards != 1:
-        raise ValueError("the port runs the step on one device: "
-                         f"n_shards must be 1, got {dims.n_shards}")
-    # ---- block 1 ---------------------------------------------------------
+          *, dims: SliceDims, coll=None):
+    """One shard's step; `coll` is its `mesh.Collectives` (None: the
+    one-device step, shard 0 of 1)."""
+    N = dims.n_shards
+    if (1 if coll is None else coll.n) != N:
+        raise ValueError(f"the step's dims hold {N} shards, the mesh "
+                         f"{1 if coll is None else coll.n}")
+    me = 0 if coll is None else coll.me
+    # ---- block 1: classify my slice of the records ----------------------
     entries, counts3 = _classify_extract(
         tid, pos, flag, mapq, mtid, mpos, tlen, lclip, rclip,
         name_hi, name_lo,
         wtid, wstart, wend, wgap, wedge, gap_start, gap_end, dims=dims)
+    counts = counts3 if coll is None else coll.psum(counts3)
 
-    # ---- block 2 ---------------------------------------------------------
+    # ---- block 2: route to gap-home shards, dedup/join, group -----------
     rowtab, hqtab, n_reads, (n_raw_max, n_recv) = _route_and_group(
-        entries, tbl_hi, tbl_lo, tbl_row, tbl_side, dims=dims)
+        entries, tbl_hi, tbl_lo, tbl_row, tbl_side, dims=dims, coll=coll)
 
     # ---- block 3 ---------------------------------------------------------
     seq, rlen = gather_reads(rowtab, reads_tbl, reads_len)
     useq, ulen, ucnt, hist, (o_nodes, o_edges, o_nk) = _assemble_block(
         seq, rlen, dims)
-    # capacity indicators (see check_overflow): raw node/edge counts,
-    # raw per-gap recruit max, distinct-k-mer max, raw router demand
+    # capacity indicators, maxed over the mesh (see check_overflow): raw
+    # node/edge counts, raw per-gap recruit max, distinct-k-mer max, raw
+    # router demand
     over = torch.stack([o_nodes, o_edges, n_raw_max.to(torch.int32), o_nk,
                         n_recv.to(torch.int32)]).to(torch.int32)
+    if coll is not None:
+        hist, over = coll.psum(hist), coll.pmax(over)
 
     # ---- block 4 ---------------------------------------------------------
-    myg = torch.arange(dims.gaps_per_shard, device=useq.device).clamp(
-        0, dims.n_gaps - 1)
+    # home = gap % N at local slot gap // N, so slot j holds gap me + j*N
+    myg = torch.arange(dims.gaps_per_shard, device=useq.device)
+    if coll is not None:
+        myg = me + myg * N
+    myg = myg.clamp(0, dims.n_gaps - 1)
     score, qend, tend = _pick_score_block(
         useq, ulen, flank_l[myg], flank_r[myg], flank_ll[myg],
         flank_rl[myg])
-    return (torch.cat([counts3, over]), hist, n_recv[None].to(torch.int32),
+    return (torch.cat([counts, over]), hist, n_recv[None].to(torch.int32),
             n_reads, rowtab, hqtab, useq, ulen, ucnt, score, qend, tend)
+
+
+# _step's argument split: the first N_DP_ARGS are split over the mesh
+# (alignment-record columns + name hashes), the remaining N_REP_ARGS are
+# replicated (window/gap tables, FASTQ name table, read store, flanks)
+N_DP_ARGS = 11
+N_REP_ARGS = 17
+N_OUT_DP = 10   # all outputs after (counts, hist) are per-shard
+IN_SPECS = (DP,) * N_DP_ARGS + (REP,) * N_REP_ARGS
+OUT_SPECS = (REP, REP) + (DP,) * N_OUT_DP
+
+
+@functools.lru_cache(maxsize=64)
+def make_slice_step(mesh, dims: SliceDims):
+    """The fused step over `mesh` (all axes flattened as dp), cached per
+    (mesh, dims) as the JAX jit is. The returned fn takes the 28 inputs
+    as global values or placed ShardedArrays (`place_args`) and returns
+    the 12 outputs as `mesh.ShardedArray`s (`mp.to_np` gives the global
+    arrays: counts and hist replicated, the rest [N * Gl, ...] in shard
+    order)."""
+    return shard_map(functools.partial(_step, dims=dims), mesh, IN_SPECS,
+                     OUT_SPECS)
 
 
 def run_step(dims: SliceDims, args, device="cuda"):
@@ -500,6 +539,18 @@ def example_data(n_shards: int = 1, gaps_per_shard: int = 2, seed: int = 0,
             tbl_hi, tbl_lo, tbl_row, tbl_side,
             reads_tbl, reads_len, flank_l, flank_r, flank_ll, flank_rl)
     return dims, args
+
+
+# gap-home ownership: gap g lives on shard g % N at local slot g // N
+def home_of(gap: np.ndarray, n_shards: int):
+    return gap % n_shards, gap // n_shards
+
+
+def place_args(mesh, args):
+    """Each of the 28 inputs placed with the step's sharding: this
+    process's shards' pieces, on their devices (every process passes
+    the same global values)."""
+    return tuple(place(a, Sharding(mesh, s)) for a, s in zip(args, IN_SPECS))
 
 
 def example_reads(args, rowtab):

@@ -10,6 +10,11 @@ oracle path): `gap_distinct_kmers`, `count_gap_kmers` and
 distinct canonical k-mers on the device, bring them to the host, and
 for each (k, sub_k) assemble the k-mers themselves with the batched
 DBG (ops/dbg.py), growing each cap on the host as the JAX package does.
+Both device calls split the batch's gaps over the shards of a mesh
+(`mesh.map_blocks`; without one, the one shard of
+`mesh.local_mesh(device)`) and gather the results: every gap is
+computed on its own, so the results and the caps grown from them are
+the one-device ones.
 
 Each gap's table of distinct canonical k-mers is merged chunk by chunk
 with the k-mers of the next reads: concatenate, sort, keep the first of
@@ -29,6 +34,7 @@ import torch
 from .. import dna, entry_device
 from ..config import Config
 from ..ops import dbg, kmers, psort
+from ..parallel import mesh as pmesh
 from ..utils import log
 
 FULL = 0xFFFFFFFF
@@ -184,7 +190,7 @@ def gap_distinct_kmers(reads, read_len, n_reads, k: int,
 
 
 def count_gap_kmers(cfg: Config, reads, read_len, n_reads, k: int,
-                    max_distinct: int, device="cuda"):
+                    max_distinct: int, device="cuda", mesh=None):
     """Distinct-k-mer counting with auto-growing capacity.
 
     When ``cfg.max_distinct_kmers`` is 0 (the default: reference-parity
@@ -193,12 +199,15 @@ def count_gap_kmers(cfg: Config, reads, read_len, n_reads, k: int,
     memory backstop is hit; a fixed positive config value keeps the
     given bound but WARNS whenever it truncates.
     """
+    if mesh is None:
+        mesh = pmesh.local_mesh(device)
     auto = cfg.max_distinct_kmers == 0
     md = max_distinct if auto else cfg.max_distinct_kmers
     while True:
-        kstr, nk, kcnt, sat = gap_distinct_kmers(
-            reads, read_len, n_reads, k, md, min_count=cfg.min_kmer_count,
-            device=device)
+        kstr, nk, kcnt, sat = pmesh.map_blocks(
+            mesh, lambda r, rl, nr, device: gap_distinct_kmers(
+                r, rl, nr, k, md, min_count=cfg.min_kmer_count,
+                device=device), reads, read_len, n_reads)
         if not sat.any():
             return kstr, nk, kcnt
         if auto and md < MAX_AUTO_DISTINCT:
@@ -219,9 +228,10 @@ def count_gap_kmers(cfg: Config, reads, read_len, n_reads, k: int,
 
 def assemble_gap_batch(cfg: Config, reads, read_len, n_reads,
                        max_distinct: int = 1 << 14,
-                       device="cuda") -> GapContigs:
+                       device="cuda", mesh=None) -> GapContigs:
     """Run all (k, sub_k) settings over one padded gap batch on `device`
-    (the card unless the caller asks for "cpu").
+    (the card unless the caller asks for "cpu"), or with `mesh` split
+    over its shards (G a multiple of them) and gathered.
 
     Output bounds are provably sufficient by default: a unitig over M
     distinct k-mers is at most M+k bases, so ``max_contig_len`` auto =
@@ -230,6 +240,8 @@ def assemble_gap_batch(cfg: Config, reads, read_len, n_reads,
     (the reference's Velvet output is unbounded).
     """
     device = entry_device(device, "assemble_gap_batch")
+    if mesh is None:
+        mesh = pmesh.local_mesh(device)
     G = reads.shape[0]
     seqs, lens, counts, names = [], [], [], [[] for _ in range(G)]
     # distinct-k-mer tables depend only on k: count once per unique k,
@@ -238,7 +250,7 @@ def assemble_gap_batch(cfg: Config, reads, read_len, n_reads,
     for (k, sub_k) in cfg.kmers:
         if k not in kmer_cache:
             kmer_cache[k] = count_gap_kmers(cfg, reads, read_len, n_reads,
-                                            k, max_distinct, device)
+                                            k, max_distinct, device, mesh)
     for (k, sub_k) in cfg.kmers:
         kstr, nk, kcnt = kmer_cache[k]
         md = kstr.shape[1]
@@ -252,15 +264,23 @@ def assemble_gap_batch(cfg: Config, reads, read_len, n_reads,
         nk_max = max(int(np.asarray(nk).max(initial=0)), 1)
         ncap = _next_pow2(2 * nk_max + 4 * k)
         worst = kstr.shape[1] * 2 * (k - sub_k + 1)
-        on = [torch.from_numpy(x).to(device) for x in (kstr, nk, kcnt)]
-        while True:
+
+        def unitigs(ks, n, kc, device, mu, cap):
+            on = [torch.from_numpy(np.ascontiguousarray(x)).to(device)
+                  for x in (ks, n, kc)]
             with torch.no_grad():
-                useq, ulen, ucnt, n_nodes, n_edges = dbg.assemble_unitigs(
+                res = dbg.assemble_unitigs(
                     *on, k=k, sub_k=sub_k, max_unitigs=mu, max_len=max_len,
                     min_len=cfg.min_contig_len,
-                    pop_bubbles=cfg.bubble_pop_rounds,
-                    node_cap=min(ncap, worst), edge_cap=min(ncap, worst))
-            useq, ulen, ucnt = (x.cpu().numpy() for x in (useq, ulen, ucnt))
+                    pop_bubbles=cfg.bubble_pop_rounds, node_cap=cap,
+                    edge_cap=cap)
+            return tuple(x.cpu().numpy() for x in res)
+
+        while True:
+            useq, ulen, ucnt, n_nodes, n_edges = pmesh.map_blocks(
+                mesh, lambda ks, n, kc, device: unitigs(
+                    ks, n, kc, device, mu, min(ncap, worst)),
+                kstr, nk, kcnt)
             over = max(int(n_nodes.max()), int(n_edges.max()))
             if over > min(ncap, worst) and ncap < worst:
                 log.warn_cap(

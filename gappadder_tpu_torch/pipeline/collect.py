@@ -9,7 +9,10 @@ the discordant mates' positions are classified in a second pass (pass
 and joined to the library's FASTQ name tables (`recruit_on_device`).
 The host decodes the BAM and indexes the FASTQs, prefilters the records
 that lie in some window, builds the windows of pass 2 and merges the
-libraries. A configured `tpu.mesh_shape` runs on the one device.
+libraries. A configured `tpu.mesh_shape` (when the processes hold that
+many shards) splits each pass-1 batch over the mesh's shards; the
+entries come back in shard order, which is the records' order, so the
+result is the one-device result.
 
 Workspace outputs:
   recruits.npz        columns gap, side, lib, row (FASTQ row in that
@@ -30,6 +33,7 @@ import numpy as np
 import torch
 
 from .. import entry_device
+from ..parallel.mesh import local_mesh, make_mesh_if_configured
 from ..config import Config
 from ..io import bam as bam_io
 from ..io import fasta, fastq, native
@@ -135,18 +139,24 @@ def _compact(valid, cols, ecap: int):
     return torch.cat([count, packed])
 
 
-def make_extract_step(dims, ecap: int = 1 << 15):
+def make_extract_step(dims, mesh, ecap: int = 1 << 15):
     """Pass 1 on one batch: the fused step's classification block
     (`parallel.slice._classify_extract`) and then the compaction of the
     valid entries on the device. The returned fn(mat, *windows) takes
     an int64 [B, 11] batch (tid, pos, flag, mapq, mtid, mpos, tlen,
     lclip, rclip and the name hash's high and low 32-bit words as
     values) and the padded window and gap columns, and returns (packed,
-    counts3): packed is `_compact`'s [ecap + 1, 7] of rows (gap, side,
-    hash_hi, hash_lo, hq, mate_tid, mate_pos) in entry order."""
+    counts3), each a ShardedArray over `mesh`: the batch is split over
+    its shards and the windows replicated, and each shard packs
+    `_compact`'s [ecap + 1, 7] of rows (gap, side, hash_hi, hash_lo, hq,
+    mate_tid, mate_pos) in entry order, so packed's global array
+    (`mp.to_np`) is [n_shards * (ecap + 1), 7], shard after shard, each
+    block with its own count row, and counts3's [n_shards * 3]."""
     from ..parallel import slice as sl
+    from ..parallel.mesh import DP, REP, shard_map
 
-    def fn(mat, *windows):
+    def fn(mat, *windows, coll):
+        del coll   # a shard's classification runs no collective
         cols = [mat[:, i].to(torch.int32) for i in range(9)]
         (gap, side, hi, lo, hq, valid), (mt, mp), c3 = sl._classify_extract(
             *cols, mat[:, 9], mat[:, 10], *windows, dims=dims,
@@ -154,7 +164,8 @@ def make_extract_step(dims, ecap: int = 1 << 15):
         return _compact(valid, [x.to(torch.int64) for x in
                                 (gap, side, hi, lo, hq, mt, mp)], ecap), c3
 
-    return fn
+    return shard_map(fn, mesh, (DP,) + (REP,) * 7, (DP, DP))
+
 
 
 def _lowmapq_compact(mat, windows, *, fanout: int, ecap: int):
@@ -182,40 +193,51 @@ class _Entries:
         self.hq.append(hq)
 
 
-def _pass1(sub_mat, windows, dims, batch: int, ecap: int, device,
-           ent: _Entries):
+def _pass1(sub_mat, windows, dims, batch: int, ecap: int, ent: _Entries,
+           mesh):
     """Pass 1 over the focal candidates (`sub_mat`, int64 [n, 11]) in
-    batches of `batch` records, in order. Returns the discordant
-    entries' (mate_tid, mate_pos, gap) columns."""
+    batches of `batch` records (rounded up to a multiple of the mesh's
+    shards), in order, each batch split over the mesh's shards.
+    Returns the discordant entries' (mate_tid, mate_pos, gap) columns.
+    A compaction that overflows on any shard grows the cap of every
+    shard and redoes the batch (one batch is in flight at a time)."""
+    from ..parallel import mp
+    n_shards = mesh.n_shards
+    batch = -(-batch // n_shards) * n_shards
     mates = ([], [], [])
-    extract = make_extract_step(dims, ecap)
+    extract = make_extract_step(dims, mesh, ecap)
     for lo in range(0, len(sub_mat), batch):
         hi = min(lo + batch, len(sub_mat))
         mat = sub_mat[lo:hi]
         if hi - lo < batch:
             mat = np.concatenate([mat, np.broadcast_to(
                 PAD_ROW, (batch - (hi - lo), len(PAD_ROW)))])
-        mat = torch.from_numpy(np.ascontiguousarray(mat)).to(device)
+        mat = torch.from_numpy(np.ascontiguousarray(mat))
         while True:
-            packed = extract(mat, *windows)[0].cpu().numpy()
-            cnt = int(packed[0, 0])
-            if cnt <= ecap:
+            packed = mp.to_np(extract(mat, *windows)[0])
+            stride = ecap + 1              # count row + ecap entries
+            nv = packed[::stride, 0][:n_shards]
+            if int(nv.max()) <= ecap:
                 break
             # the compaction overflowed: grow the cap, redo this batch
-            ecap = 1 << (cnt - 1).bit_length()
-            extract = make_extract_step(dims, ecap)
-        if cnt == 0:
-            continue
-        seg = packed[1:1 + cnt]
-        eg = seg[:, 0]
-        ent.add(eg, seg[:, 1], (seg[:, 2].astype(np.uint64) << np.uint64(32))
-                | seg[:, 3].astype(np.uint64), seg[:, 4].astype(bool))
-        # mate fields are -1 outside the disc third; a valid disc entry
-        # carries its mate's scaffold (-1 when the draft lacks it)
-        dsel = seg[:, 5] >= 0
-        if dsel.any():
-            for out, col in zip(mates, (seg[:, 5], seg[:, 6], eg)):
-                out.append(col[dsel])
+            ecap = 1 << (int(nv.max()) - 1).bit_length()
+            extract = make_extract_step(dims, mesh, ecap)
+        for sh in range(n_shards):
+            cnt = int(nv[sh])
+            if cnt == 0:
+                continue
+            seg = packed[sh * stride + 1:sh * stride + 1 + cnt]
+            eg = seg[:, 0]
+            ent.add(eg, seg[:, 1], (seg[:, 2].astype(np.uint64)
+                                    << np.uint64(32))
+                    | seg[:, 3].astype(np.uint64), seg[:, 4].astype(bool))
+            # mate fields are -1 outside the disc third; a valid disc
+            # entry carries its mate's scaffold (-1 when the draft lacks
+            # it)
+            dsel = seg[:, 5] >= 0
+            if dsel.any():
+                for out, col in zip(mates, (seg[:, 5], seg[:, 6], eg)):
+                    out.append(col[dsel])
     return tuple(np.concatenate(m) if m else np.zeros(0, np.int64)
                  for m in mates)
 
@@ -303,13 +325,16 @@ def _host_union(gap_a, side_a, hash_a, hq_a, left, right):
 def collect_library(cfg: Config, lib, gaps: dict[str, np.ndarray],
                     scaffold_names: list[str], aln: bam_io.Alignments,
                     left, right, use_device_union: bool = True,
-                    initial_ecap: int = 1 << 15, device="cuda"):
+                    initial_ecap: int = 1 << 15, device="cuda", mesh=None):
     """Classify one library's records on `device` (the card unless the
-    caller asks for "cpu"). Returns 1-D numpy arrays gap, side, row (the
-    row of the side's read set) and hq (bool). `use_device_union=False`
-    takes the host numpy union (`_host_union`) in place of
+    caller asks for "cpu"), pass 1 over `mesh`'s shards (default: the
+    one shard of `mesh.local_mesh(device)`). Returns 1-D numpy arrays gap, side, row (the row of the
+    side's read set) and hq (bool). `use_device_union=False` takes the
+    host numpy union (`_host_union`) in place of
     `recruit_on_device`."""
     device = entry_device(device, "collect_library")
+    if mesh is None:
+        mesh = local_mesh(device)
     from ..parallel.slice import SliceDims
     dist1 = lib.insert_size - 3 * lib.std
     dist2 = lib.insert_size + 3 * lib.std
@@ -359,8 +384,8 @@ def collect_library(cfg: Config, lib, gaps: dict[str, np.ndarray],
         sub_mat[:, 9] = hash_sub >> np.uint64(32)
         sub_mat[:, 10] = hash_sub & np.uint64(0xFFFFFFFF)
         B = cfg.tpu.read_batch
-        mt, mp, mg = _pass1(sub_mat, windows, dims, B, initial_ecap, device,
-                            ent)
+        mt, mp, mg = _pass1(sub_mat, windows, dims, B, initial_ecap, ent,
+                            mesh)
 
         # --- pass 2: mapq-0 reads near the discordant mates --------------
         if len(mt):
@@ -414,6 +439,9 @@ def run_collect(cfg: Config, ws: Workspace,
     device = entry_device(device, "run_collect")
     gaps = ws.load_arrays("gaps")
     scaffold_names = ws.load_json("scaffold_names")
+    # shard classification over a mesh when one is configured and the
+    # processes hold enough shards (records split, tables replicated)
+    mesh = make_mesh_if_configured(cfg, device)
 
     all_cols = {"gap": [], "side": [], "row": [], "hq": [], "lib": []}
     bu_cols = {"lib": [], "side": [], "row": []}
@@ -447,7 +475,7 @@ def run_collect(cfg: Config, ws: Workspace,
                 map_index = minimap.build_index(genome)
             aln = minimap.map_library(genome, map_index, left, right)
         rec = collect_library(cfg, lib, gaps, scaffold_names, aln,
-                              left, right, device=device)
+                              left, right, device=device, mesh=mesh)
         for k in ("gap", "side", "row", "hq"):
             all_cols[k].append(rec[k])
         all_cols["lib"].append(np.full(len(rec["gap"]), li, np.int32))

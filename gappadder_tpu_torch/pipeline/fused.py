@@ -1,12 +1,18 @@
 """The shipped Assembly stage's device batch (counterpart of
-gappadder_tpu/pipeline/fused.py::assemble_batch), on one device.
+gappadder_tpu/pipeline/fused.py::assemble_batch), on one device or over
+the shards of a mesh.
 
 One gap batch goes through the same blocks as the fused step
 (parallel/slice.py): gap-home routing (`dist.route_shard`), per-gap
 grouping (`slice._group_rows`), the payload gather and the
-multi-(k, sub_k) DBG assembly (`slice._assemble_block`). The JAX form
-runs them under `shard_map` over a mesh; here they run on the one card
-(or on the CPU when the caller asks for it), with no mesh.
+multi-(k, sub_k) DBG assembly (`slice._assemble_block`). They run
+under `mesh.shard_map` as the JAX form runs under `shard_map`, over a
+mesh of N shards or, without one, over the one shard of
+`mesh.local_mesh(device)` (the card, or the CPU when the caller asks
+for it): batch slot i lives on shard i % N at local slot i // N,
+the entries are split over the shards and routed home, the compact
+read store is replicated, and the capacity indicators are maxed over
+the shards.
 
 Caps grow as in the JAX package: after each run the step's overflow
 indicators are read and the offending dimension is doubled (the
@@ -17,12 +23,15 @@ length) until nothing truncates, each growth announced through
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from .. import dna, entry_device
 from ..config import Config
-from ..parallel import dist
+from ..parallel import dist, mp
+from ..parallel.mesh import DP, REP, Sharding, local_mesh, place, shard_map
 from ..parallel.slice import (SliceDims, _assemble_block, _group_rows,
                               gather_reads)
 from ..utils import log
@@ -58,14 +67,19 @@ def _compact_store(batch, per_gap, readsets, R: int, L: int):
 
 
 def _assemble_step(egap, erow, ehq, reads_tbl, reads_len, *,
-                   dims: SliceDims):
-    """Blocks 2-3 of the fused step: route the entries home, group
-    them into [Gl, R] row tables, gather the reads, assemble. Returns
-    (over int32 [7], meta int32 [Gl, 1 + C + S], useq)."""
+                   dims: SliceDims, coll):
+    """Blocks 2-3 of the fused step on one shard (`coll` its
+    Collectives): route the entries to their gap-home shard, group them
+    into [Gl, R] row tables, gather the reads, assemble. Returns (over
+    int32 [7], maxed over the shards; meta int32 [Gl, 1 + C + S];
+    useq)."""
     valid = egap >= 0
+    # gap-home = slot % N
+    dest = torch.where(valid, torch.remainder(egap, dims.n_shards),
+                       torch.zeros_like(egap))
     (rgap, rrow, rhq), _src, n_recv = dist.route_shard(
-        (egap, erow, ehq), valid, out_cap=dims.entry_cap,
-        fills=(-1, -1, -1))
+        (egap, erow, ehq), dest, valid, out_cap=dims.entry_cap,
+        fills=(-1, -1, -1), coll=coll)
     rowtab, _hqtab, n_reads, n_raw_max = _group_rows(
         rgap, rrow, rhq.to(torch.bool), rgap >= 0, dims)
     seq, rlen = gather_reads(rowtab, reads_tbl, reads_len)
@@ -75,15 +89,32 @@ def _assemble_step(egap, erow, ehq, reads_tbl, reads_len, *,
     over = torch.stack([x.to(i32) for x in (
         o_nodes, o_edges, n_raw_max, o_nk, n_recv[0],
         torch.clamp(ucnt.max(), min=0), torch.clamp(ulen.max(), min=0))])
+    over = coll.pmax(over)
     meta = torch.cat([n_reads[:, None].to(i32), ulen.to(i32),
                       ucnt.to(i32)], dim=1)
     return over, meta, useq
 
 
+# entries split over the shards, the read store replicated
+ASSEMBLE_IN_SPECS = (DP, DP, DP, REP, REP)
+
+
+@functools.lru_cache(maxsize=64)
+def make_assemble_step(mesh, dims: SliceDims):
+    """`_assemble_step` over `mesh`, cached per (mesh, dims): entries
+    split over the shards, the read store replicated; over replicated,
+    meta and useq each shard's."""
+    return shard_map(functools.partial(_assemble_step, dims=dims), mesh,
+                     ASSEMBLE_IN_SPECS, (REP, DP, DP))
+
+
 def assemble_batch(cfg: Config, batch, per_gap, readsets, R: int, L: int,
-                   max_distinct: int, device="cuda") -> assemble.GapContigs:
+                   max_distinct: int, device="cuda",
+                   mesh=None) -> assemble.GapContigs:
     """Assemble one gap batch on `device` (the card unless the caller
-    asks for "cpu").
+    asks for "cpu"), or with `mesh` over its shards (on their devices;
+    len(batch) must be a multiple of the shards). Without a mesh the
+    batch runs on `mesh.local_mesh(device)`, one shard.
 
     Args:
       batch: list of gap indices (may contain -1 padding slots).
@@ -94,20 +125,31 @@ def assemble_batch(cfg: Config, batch, per_gap, readsets, R: int, L: int,
       max_distinct: starting distinct-k-mer bound for this bucket.
 
     Returns GapContigs for the batch (host arrays + names), equal to
-    the JAX package's assemble_batch on the same read sets."""
+    the JAX package's assemble_batch on the same read sets, whatever
+    the mesh."""
     device = entry_device(device, "assemble_batch")
+    if mesh is None:
+        mesh = local_mesh(device)
+    N = mesh.n_shards
     Gb = len(batch)
+    if Gb % N:
+        raise ValueError(f"assemble_batch: {Gb} gap slots do not split "
+                         f"over {N} shards")
+    Gl = Gb // N
+    # compact read store + dense entries: gap -> batch slot (slot i
+    # lives on shard i % N at local slot i // N), row -> store
     eg, er, reads_tbl, reads_len = _compact_store(
         batch, per_gap, readsets, R, L)
-    E = max(len(eg), 1)
+    E = max(len(eg), N)
     E = 1 << (E - 1).bit_length()
+    E = -(-E // N) * N
     egap = np.full(E, -1, np.int32)
     erow = np.zeros(E, np.int32)
     ehq = np.zeros(E, np.int32)
     egap[:len(eg)] = eg
     erow[:len(er)] = er
-    inputs = [torch.from_numpy(x).to(device)
-              for x in (egap, erow, ehq, reads_tbl, reads_len)]
+    inputs = [place(x, Sharding(mesh, s)) for x, s in zip(
+        (egap, erow, ehq, reads_tbl, reads_len), ASSEMBLE_IN_SPECS)]
 
     kmax = max(k for k, _ in cfg.kmers)
     mu = max(cfg.max_unitigs, 1)
@@ -126,7 +168,7 @@ def assemble_batch(cfg: Config, batch, per_gap, readsets, R: int, L: int,
             Lc = max(512, assemble._next_pow2(md // 4 + kmax),
                      Lc_override)
         dims = SliceDims(
-            n_shards=1, n_gaps=Gb, gaps_per_shard=Gb, entry_cap=E,
+            n_shards=N, n_gaps=Gb, gaps_per_shard=Gl, entry_cap=E,
             reads_per_gap=max(R, 1), kset=tuple(cfg.kmers),
             max_distinct=md, node_cap=ncap_override,
             max_unitigs=mu, max_contig_len=Lc,
@@ -134,10 +176,9 @@ def assemble_batch(cfg: Config, batch, per_gap, readsets, R: int, L: int,
             min_kmer_count=cfg.min_kmer_count,
             pop_bubbles=cfg.bubble_pop_rounds,
             fixed_kmer_cap=cfg.max_distinct_kmers != 0)
-        with torch.no_grad():
-            over, meta, useq = _assemble_step(*inputs, dims=dims)
+        over, meta, useq = make_assemble_step(mesh, dims)(*inputs)
         o_nodes, o_edges, _nraw, o_nk, _nrecv, o_ucnt, o_ulen = (
-            int(x) for x in over.cpu())
+            int(x) for x in mp.to_np(over))
         if o_nk >= md:
             if auto_md and md < assemble.MAX_AUTO_DISTINCT:
                 log.warn_cap(
@@ -185,9 +226,9 @@ def assemble_batch(cfg: Config, batch, per_gap, readsets, R: int, L: int,
                 continue
         break
 
-    # ---- compact + name ----------------------------------------------------
-    meta = meta.cpu().numpy()
-    useq = useq.cpu().numpy()
+    # ---- reassemble the batch order + compact + name -----------------------
+    meta = mp.to_np(meta)
+    useq = mp.to_np(useq)
     S = len(cfg.kmers)
     C = S * mu
     ulen = meta[:, 1:1 + C]
@@ -197,12 +238,15 @@ def assemble_batch(cfg: Config, batch, per_gap, readsets, R: int, L: int,
     out_cnt = np.zeros(Gb, np.int32)
     names: list[list[str]] = [[] for _ in range(Gb)]
     for i in range(Gb):
+        # batch slot i lives on shard i % N, local slot i // N; the
+        # per-shard outputs are shard-major: row (i % N) * Gl + i // N
+        r = (i % N) * Gl + i // N
         c = 0
         for si, (k, sub_k) in enumerate(cfg.kmers):
-            n = int(ucnt[i, si])
+            n = int(ucnt[r, si])
             blk = slice(si * mu, si * mu + n)
-            out_seq[i, c:c + n] = useq[i, blk]
-            out_len[i, c:c + n] = ulen[i, blk]
+            out_seq[i, c:c + n] = useq[r, blk]
+            out_len[i, c:c + n] = ulen[r, blk]
             names[i] += [f"{k}_{sub_k}_{j}" for j in range(n)]
             c += n
         out_cnt[i] = c

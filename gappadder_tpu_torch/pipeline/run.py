@@ -1,5 +1,6 @@
 """Assembly+Pick driver: the full two-round pipeline with rescue
-(counterpart of gappadder_tpu/pipeline/run.py), on one device.
+(counterpart of gappadder_tpu/pipeline/run.py), on one device or with
+the Assembly batches over the shards of a mesh.
 
   round 1: per-gap multi-k DBG assembly (the fused device batch, or
            the non-fused one with tpu.fused=False) -> dedup/merge ->
@@ -16,9 +17,14 @@ pick passes) runs on `device`: the card unless the caller asks for
 "cpu". The host code between them is the JAX package's, so the outputs
 (`picked_seqs.fa`, `picked_seqs.fa_ori.txt`, `merge_info.txt`, the
 fills, extensions and contig store) are the JAX package's, byte for
-byte. A configured `tpu.mesh_shape` runs on the one device, as the JAX
-package runs when it has fewer devices than the mesh. Gap batches are
-bucketed by read count so padded shapes stay few.
+byte. A configured `tpu.mesh_shape` shards the Assembly batches over a
+mesh when the processes hold that many shards
+(`mesh.make_mesh_if_configured`), and runs unsharded otherwise (one
+shard, `mesh.local_mesh(device)`), as the JAX
+package does with fewer devices than the mesh; the outputs are the same
+either way. The host stages (merge, pick, rescue) compute the same
+bytes on every process, and only process 0 writes files. Gap batches
+are bucketed by read count so padded shapes stay few.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from .. import dna, entry_device
 from ..config import Config
 from ..io import fasta, fastq
 from ..ops import merge_engine
+from ..parallel.mesh import local_mesh, make_mesh_if_configured
 from ..utils import log
 from . import assemble, fused, pick, rescue
 from .preprocess import gap_ids
@@ -179,11 +186,16 @@ def _bucket_of(n: int):
 
 
 def _assemble_gaps(cfg, gap_list, per_gap, readsets, L, contig_store, mcfg,
-                   minfo=None, device="cuda"):
+                   minfo=None, device="cuda", mesh=None):
     """Assemble + refine contigs for the given gaps (bucketed by read
     count), through the fused device batch (`fused.assemble_batch`), or
     with `tpu.fused=False` the non-fused one (`_pad_batch` +
-    `assemble.assemble_gap_batch`)."""
+    `assemble.assemble_gap_batch`), over `mesh` (default: the one shard
+    of `mesh.local_mesh(device)`): the gap batch is a multiple of its
+    shards and split over them (per-gap assembly needs no collective
+    but the route home)."""
+    if mesh is None:
+        mesh = local_mesh(device)
     buckets: dict[int, list[int]] = {}
     md_of = dict(_BUCKETS)
     cap = cfg.max_reads_per_gap
@@ -202,10 +214,12 @@ def _assemble_gaps(cfg, gap_list, per_gap, readsets, L, contig_store, mcfg,
     raw_store: dict[int, tuple] = {}
     raw_order: list[int] = []
     GB = max(int(getattr(cfg.tpu, "gap_batch", 16)), 1)
+    m = mesh.n_shards
+    GB = -(-GB // m) * m
     for R, gl in sorted(buckets.items()):
         gb = GB
         if R * GB > _MAX_BATCH_ROWS:
-            gb = max(_MAX_BATCH_ROWS // R, 1)
+            gb = max(-(-max(_MAX_BATCH_ROWS // R, 1) // m) * m, m)
         for lo in range(0, len(gl), gb):
             batch = gl[lo:lo + gb]
             padded = batch + [-1] * (gb - len(batch))  # fixed G shape
@@ -213,13 +227,13 @@ def _assemble_gaps(cfg, gap_list, per_gap, readsets, L, contig_store, mcfg,
             if cfg.tpu.fused:
                 contigs = fused.assemble_batch(
                     cfg, padded, per_gap, readsets, Rcap, L,
-                    max_distinct=md_of[R], device=device)
+                    max_distinct=md_of[R], device=device, mesh=mesh)
             else:
                 seq, rlen, nreads = _pad_batch(padded, per_gap, readsets,
                                                Rcap, L)
                 contigs = assemble.assemble_gap_batch(
                     cfg, seq, rlen, nreads, max_distinct=md_of[R],
-                    device=device)
+                    device=device, mesh=mesh)
             for i, g in enumerate(batch):
                 raw_order.append(g)
                 raw_store[g] = ([np.asarray(contigs.seq[i][j]
@@ -329,10 +343,11 @@ def run_assembly_and_pick(cfg: Config, ws: Workspace, rec=None,
 
     # merge provenance: gap -> reference-format .merge.info lines
     minfo: dict[int, list[str]] = {}
+    mesh = make_mesh_if_configured(cfg, device)
 
     # ---- round 1 --------------------------------------------------------
     _assemble_gaps(cfg, active, per_gap, readsets, L, contig_store, mcfg,
-                   minfo=minfo, device=device)
+                   minfo=minfo, device=device, mesh=mesh)
     _pick_gaps(cfg, gaps, active, contig_store, fills, exts,
                cfg.pick_min_score_round1, allow_extension=False,
                device=device)
@@ -349,7 +364,8 @@ def run_assembly_and_pick(cfg: Config, ws: Workspace, rec=None,
             per_gap[g] += [e for e in extra[g] if e not in seen]
         if round2:
             _assemble_gaps(cfg, round2, per_gap, readsets, L,
-                           contig_store, mcfg, minfo=minfo, device=device)
+                           contig_store, mcfg, minfo=minfo, device=device,
+                           mesh=mesh)
             _pick_gaps(cfg, gaps, round2, contig_store, fills, exts,
                        cfg.pick_min_score_round1, allow_extension=False,
                        device=device)

@@ -24,6 +24,7 @@ from gappadder_tpu.pipeline import patch as jpatch
 from gappadder_tpu.pipeline import preprocess as jpreprocess
 from gappadder_tpu.pipeline import run as jrun
 from gappadder_tpu.pipeline.workspace import Workspace as JWorkspace
+from gappadder_tpu_torch.parallel import mp
 from gappadder_tpu_torch.pipeline import collect as tcollect
 from gappadder_tpu_torch.pipeline import patch as tpatch
 from gappadder_tpu_torch.pipeline import preprocess as tpreprocess
@@ -111,12 +112,14 @@ def _count_branches(monkeypatch):
     step = tcollect.make_extract_step
     low = tcollect._lowmapq_compact
 
-    def make(dims, ecap=1 << 15):
-        fn = step(dims, ecap)
+    def make(dims, mesh, ecap=1 << 15):
+        fn = step(dims, mesh, ecap)
 
         def counted(mat, *windows):
             packed, c3 = fn(mat, *windows)
-            for k, v in zip(("clip", "disc", "unmap"), c3.tolist()):
+            # each shard's three counts, summed over the shards
+            for k, v in zip(("clip", "disc", "unmap"),
+                            mp.to_np(c3).reshape(-1, 3).sum(0).tolist()):
                 seen[k] += v
             return packed, c3
         return counted

@@ -4,8 +4,9 @@
 same path, so the config hash in the manifest is the same. Every
 workspace file is equal byte for byte (the .npz files array by array),
 but for the manifest's times and metrics.json; the printed lines are
-equal too. Then the port's own flags: Clean, --trace, --coordinator,
-and the refusal to run without a card unless asked for the CPU."""
+equal too. Then the port's own flags: Clean, --trace, --coordinator's
+refusal of a process id out of range, and the refusal to run without a
+card unless asked for the CPU."""
 
 import contextlib
 import io
@@ -144,11 +145,15 @@ def test_cli_trace_writes_a_trace(both_clis, tmp_path, capsys):
 
 
 def test_cli_refuses_coordinator(tmp_path, capsys):
+    """--coordinator runs the CLI multi-process (tests/
+    test_torch_multiprocess.py); a process id outside [0, N) is refused
+    with exit code 2 before anything starts."""
     rc = port_main(["-c", "All", "-g", str(tmp_path / "none.json"),
                     "--coordinator", "localhost:1234", "--num-processes",
-                    "2", "--process-id", "0", "--device", "cpu"])
+                    "2", "--process-id", "2", "--device", "cpu"])
     assert rc == 2
-    assert "multi-GPU" in capsys.readouterr().err
+    assert "--process-id 2 is not in [0, --num-processes 2)" in \
+        capsys.readouterr().err
     assert not (tmp_path / "work").exists()
 
 

@@ -540,3 +540,26 @@ def test_probe_launches_on_the_tensors_card_while_another_is_current(cuda):
     torch.cuda.synchronize(0)
     assert torch.equal(out, int16_repro.roll_plain(x))
     assert torch.equal(row, ke.exp_dynamic_sublane_plain(t, idx))
+
+
+@pytest.mark.gpu
+def test_two_shards_on_one_card_match_the_one_shard_step(cuda):
+    """The toy step over a mesh of two shards of the card: each gap's
+    outputs (row shard * Gl + slot of gap shard + 2 * slot) equal the
+    one-shard step's on the card, and both shards launched SW."""
+    from gappadder_tpu_torch.parallel import mesh, mp
+    dev = torch.device("cuda", torch.cuda.current_device())
+    dims, args = sl.example_data(2, gaps_per_shard=2, gap_len=(64, 160))
+    one = [o.cpu().numpy() for o in sl.run_step(
+        dataclasses.replace(dims, n_shards=1, gaps_per_shard=4,
+                            entry_cap=2 * dims.entry_cap), args)]
+    m = mesh.make_mesh((2,), ("dp",), [dev, dev])
+    before = sw_cuda.launches
+    two = [mp.to_np(o) for o in
+           sl.make_slice_step(m, dims)(*sl.place_args(m, args))]
+    assert sw_cuda.launches == before + 2
+    shard, slot = sl.home_of(np.arange(dims.n_gaps), 2)
+    rows = shard * dims.gaps_per_shard + slot
+    for a, b in list(zip(one, two))[3:]:
+        np.testing.assert_array_equal(a, b[rows])
+    assert two[0][:7].tolist() == one[0][:7].tolist()

@@ -38,6 +38,19 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_mesh_refuses_without_gpu(monkeypatch):
+    """A mesh over this process's devices is the card's unless the
+    caller names CPU devices; without a card it raises."""
+    from gappadder_tpu_torch.parallel import mesh, mp
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh.make_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mp.local_devices("cuda")
+    assert mesh.make_mesh((2,), ("dp",), ["cpu", "cpu"]).n_shards == 2
+    assert mp.local_devices("cpu") == [torch.device("cpu")]
+
+
 def test_scan_catches_forbidden_names():
     assert _forbidden("jax.numpy")
     assert _forbidden("gappadder_tpu.ops.dbg")
@@ -86,7 +99,8 @@ SLICE_MODULES = ["config", "utils.log", "io.fastq", "ops.swutil",
                  "ops.minimap", "ops.gapscan", "pipeline.collect",
                  "pipeline.patch", "cli", "utils.meters", "ops.coverage",
                  "tools.__init__", "tools.evaluate", "tools.refiner",
-                 "tools.scaffold"]
+                 "tools.scaffold", "parallel.mesh", "parallel.dist",
+                 "parallel.slice", "parallel.mp_slice_worker"]
 
 
 @pytest.mark.parametrize("mod", SLICE_MODULES)
