@@ -59,7 +59,15 @@ the two steps timed in turns), and two processes on the card (phase 15:
 14, and the CLI's `-c All --coordinator` on the chain's files, split
 over the mesh, gloo between the ranks, writing phase 13's workspace
 byte for byte; in every rank of both, every SW and sort call shape held
-to the plain version).
+to the plain version). Phase 16 (`dbg_multi`), which runs right
+after the step's times (phase 9) while the profiler still sees every
+launch: the DBG of the step's block 3 in its two forms, one
+`ops.dbg.assemble_unitigs` call a setting against one
+`assemble_unitigs_multi` call that batches the six settings in two
+groups, on the production step's own k-mer tables; every output of
+every setting equal between them and to the step's, every sort call
+shape of both held to the plain version, and both timed in interleaved
+windows and under the profiler.
 
 Prints JSON lines along the way; the line before the last is the
 `kernels` record and the last line is
@@ -154,6 +162,10 @@ TOY_KSET = ((17, 15), (21, 19))
 TOY_DRIVERS = {"round1": (dict(gap_len=(64, 160)), ()),
                "rescue": (dict(gap_len=(84, 100), seed=1), (0, 1, 2))}
 HELD_BACK_GAPS, HELD_BACK_NEAR = 8, 250
+# phase 16: the DBG's node and edge cap for every production setting,
+# and the calls a timing window
+DBG_MULTI_CAP = 4096
+DBG_MULTI_CALLS = 5
 DRIVER_FILES = ("picked_seqs.fa", "picked_seqs.fa_ori.txt", "merge_info.txt")
 
 
@@ -313,7 +325,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from gappadder_tpu_torch.config import Config
-    from gappadder_tpu_torch.ops import cuda_build, psort, sw_cuda, sw_host
+    from gappadder_tpu_torch.ops import cuda_build, dbg, psort, sw_cuda
+    from gappadder_tpu_torch.ops import sw_host
     from gappadder_tpu_torch.ops import swutil
     from gappadder_tpu_torch.ops.sw_host import BWA_PARAMS, SWParams
     from gappadder_tpu_torch.parallel import slice as sl
@@ -694,6 +707,16 @@ def main() -> int:
          busy_share=prof["device_busy_ms"] / prof["profiled_wall_ms"],
          plain_sort=prof_plain, smi=card)
 
+    # ---- phase 16: block 3's DBG, a call a setting against one batch.
+    # It runs here, beside the step's times: late in a long process the
+    # profiler drops launches, and this phase reads its kernel counts
+    t = time.perf_counter()
+    dbgm = dbg_multi_phase(sl, dbg, psort, pdims, pin, out, reset_counts,
+                           read_counts)
+    launches["dbg_multi"] = dbgm["launches"]
+    emit(phase="dbg_multi", **dbgm["check"], launches=launches["dbg_multi"],
+         **dbgm["time"], phase_s=time.perf_counter() - t, smi=card)
+
     # ---- phase 10: the probes path (the probe scripts of scripts/) ------
     # each probe module's main() on the card, as its JAX script runs
     reset_counts()
@@ -839,18 +862,133 @@ def main() -> int:
         "seedmatch_rows": drv["seedmatch_sorts"],
         "collect_shapes": chain["time"]["collect_sorts"],
         "nonfused_merge_shapes": clirun["nonfused_merge_sorts"],
+        "dbg_multi_shapes": dbgm["batched_sort_shapes"],
         "check": "exact equality with bitonic_sort_plain in every plane, "
-                 "on every call shape of the driver and chain paths too; "
-                 "times are the sums over one production step's sort calls "
-                 "(sort_time line), the seed matcher's rows in the "
-                 "driver_time line, Collect's shapes in the collect_time "
-                 "line, the non-fused k-mer merge's in the cli_time "
-                 "line"}, *probe_rows])
+                 "on every call shape of the driver, chain and dbg_multi "
+                 "paths too; times are the sums over one production "
+                 "step's sort calls (sort_time line), the seed matcher's "
+                 "rows in the driver_time line, Collect's shapes in the "
+                 "collect_time line, the non-fused k-mer merge's in the "
+                 "cli_time line, the batched DBG's in dbg_multi_shapes"},
+        *probe_rows])
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def dbg_multi_phase(sl, dbg, psort, dims, a, step_out, reset_counts,
+                    read_counts) -> dict:
+    """Phase 16: the step's block-3 DBG at the production shape in its two
+    forms, on the step's own k-mer tables (`slice._distinct_kmers` once a
+    unique k, from blocks 1-2 on the step's inputs `a`): `per_setting`,
+    one `dbg.assemble_unitigs` call a setting, and `batched`, one
+    `dbg.assemble_unitigs_multi` call, caps DBG_MULTI_CAP. Every output
+    of every setting must be equal between the forms, and the contigs
+    equal to the step's (`step_out`, phase 5); every sort call shape of
+    both forms is held to plain on its own planes. Then both forms in
+    interleaved CUDA-event windows (medians), their sort calls by shape
+    (`sort_shape_times`) and one call of each under the profiler
+    (`profile_step`: device ms and CUDA kernels). The launch counts are
+    the batched call's."""
+    with torch.no_grad():
+        entries, _ = sl._classify_extract(*a[:18], dims=dims)
+        rowtab, _, _, _ = sl._route_and_group(entries, *a[18:22], dims=dims)
+        seq, rlen = sl.gather_reads(rowtab, a[22], a[23])
+        tables = {}
+        for k, _sk in dims.kset:
+            if k not in tables:
+                tables[k] = sl._distinct_kmers(seq, rlen, k, dims)[1:4]
+    kw = dict(max_unitigs=dims.max_unitigs, max_len=dims.max_contig_len,
+              min_len=dims.min_contig_len, pop_bubbles=dims.pop_bubbles,
+              node_cap=DBG_MULTI_CAP, edge_cap=DBG_MULTI_CAP)
+    forms = {
+        "per_setting": lambda: [dbg.assemble_unitigs(
+            *tables[k], k=k, sub_k=sk, **kw) for k, sk in dims.kset],
+        "batched": lambda: dbg.assemble_unitigs_multi(
+            *zip(*(tables[k] for k, _sk in dims.kset)),
+            settings=dims.kset, **kw)}
+
+    outs, counts, calls, groups = {}, {}, {}, []
+    for name, fn in forms.items():
+        reset_counts()
+        outs[name] = fn()
+        torch.cuda.synchronize()
+        counts[name] = read_counts()
+    for name in forms:
+        if counts[name]["sort"] < 1:
+            raise AssertionError(f"dbg_multi: {name} launched no sort")
+    for s, kset in enumerate(dims.kset):
+        for j, (x, y) in enumerate(zip(outs["per_setting"][s],
+                                       outs["batched"][s])):
+            if x.shape != y.shape or not torch.equal(x, y):
+                raise AssertionError(f"dbg_multi: setting {kset} output {j}"
+                                     " differs between the forms")
+    for j in range(3):
+        got = torch.cat([r[j] if j < 2 else r[j][:, None]
+                         for r in outs["batched"]], dim=1)
+        if not torch.equal(got, step_out[6 + j]):
+            raise AssertionError(f"dbg_multi: output {j} != the step's")
+    core = dbg._core_lane
+
+    def record(occ, sub_k, cov, **ckw):
+        groups.append({"lanes": occ.shape[0], "occ_rows": occ.shape[1],
+                       "key_limbs": occ.shape[-1],
+                       "sub_k": sorted(set(sub_k.tolist()))})
+        return core(occ, sub_k, cov, **ckw)
+
+    held = {}
+    for name, fn in forms.items():
+        groups.clear()
+        with patched(dbg, "_core_lane", record), \
+                recording_sorts(psort) as calls[name]:
+            fn()
+        held[name] = [[list(shape), nk, npay, count, check_sort(psort, ops,
+                                                                nk)]
+                      for (shape, nk, npay), (count, ops)
+                      in sorted(calls[name].items())]
+    del outs
+
+    for fn in forms.values():
+        fn()                                              # warm-up
+    windows = {name: [] for name in forms}
+    for i in range(N_WINDOWS):
+        for name in (list(forms) if i % 2 == 0 else list(forms)[::-1]):
+            windows[name].append(step_window(forms[name], DBG_MULTI_CALLS))
+    med = lambda ws, key: sorted(w[key] for w in ws)[len(ws) // 2]
+    sorts, prof, shapes = {}, {}, {}
+    for name, fn in forms.items():
+        shapes[name] = sort_shape_times(psort, calls[name])
+        sorts[name] = {key: sum(r["calls"] * r[col] for r in shapes[name])
+                       for key, col in (("ms", "ms"),
+                                        ("device_ms", "device_ms"),
+                                        ("cuda_launches",
+                                         "cuda_launches_per_call"))}
+        prof[name] = profile_step(fn, {"sort": round(
+            sorts[name]["cuda_launches"]), "sw": 0}, top=5)
+    del calls
+    col = lambda key: {n: [w[key] for w in ws] for n, ws in windows.items()}
+    return {
+        "check": {"groups": groups, "outputs_equal": True,
+                  "contigs_equal_step": True,
+                  "sort_shapes_equal_plain": held,
+                  "sort_launches": {n: c["sort"] for n, c in counts.items()}},
+        "launches": counts["batched"],
+        "time": {
+            "ms": {n: med(ws, "ms_per_step") for n, ws in windows.items()},
+            "issue_ms": {n: med(ws, "issue_ms_per_step")
+                         for n, ws in windows.items()},
+            "calls_per_window": DBG_MULTI_CALLS,
+            "window_ms": col("ms_per_step"),
+            "window_host_probe_ms": col("host_probe_ms"),
+            "device_ms": {n: p["device_busy_ms"] for n, p in prof.items()},
+            "kernels": {n: p["device_kernels"] for n, p in prof.items()},
+            "profile": {n: {k: p[k] for k in ("profiled_wall_ms", "complete",
+                                              "hand_kernels", "top_ops")}
+                        for n, p in prof.items()},
+            "sort": sorts},
+        "batched_sort_shapes": shapes["batched"]}
 
 
 def check_closure(contigs, glens, kset):

@@ -1,5 +1,6 @@
-"""Batched de-Bruijn unitig assembly, one (k, sub_k) setting
-(counterpart of gappadder_tpu/ops/dbg.py::assemble_unitigs).
+"""Batched de-Bruijn unitig assembly over gaps and (k, sub_k) settings
+(counterpart of gappadder_tpu/ops/dbg.py::assemble_unitigs_multi, the
+one DBG core, and of its one-setting wrapper `assemble_unitigs`).
 
   nodes  = distinct sub_k-mers of the k-strings and their revcomps
   edges  = distinct (sub_k+1)-mers; edge u->v with u/v its prefix/suffix
@@ -11,10 +12,12 @@
            lexicographically smaller strand (cycle linearisations are
            emitted on their canonical strand instead).
 
-Every function takes the gap batch as a leading axis G (the JAX code
-vmaps one lane per gap). Pointer doubling runs a fixed number of steps
-T = bit_length(2N - 1): converged pointers are fixed points, so the
-result equals the JAX early-exit loop and needs no host sync.
+Every function takes a leading axis of lanes, one lane a (setting,
+gap) pair (the JAX code vmaps one lane per pair); sub_k is per-lane
+data, an int64 tensor [lanes], so settings with different sub_k share
+one batch of sorts and gathers. Pointer doubling runs a fixed number
+of steps T = bit_length(2N - 1): converged pointers are fixed points,
+so the result equals the JAX early-exit loop and needs no host sync.
 """
 
 from __future__ import annotations
@@ -59,39 +62,55 @@ def _unique_compact(limbs):
     return kmers.compact(s, keep, P, FULL), keep.sum(-1)
 
 
-def _prefix_kmer(edge_limbs, sub_k: int):
-    """First sub_k bases of a packed (sub_k+1)-mer, in the input's limb
-    count (a trailing limb past sub_k is zero, as in the JAX lanes)."""
-    out = []
-    for l in range(edge_limbs.shape[-1]):
-        used = min(max(sub_k - 16 * l, 0), 16)
-        mask = (((1 << (2 * used)) - 1) << (32 - 2 * used)) if used else 0
-        out.append(edge_limbs[..., l] & mask)
-    res = torch.stack(out, dim=-1)
-    invalid = torch.all(edge_limbs == FULL, dim=-1, keepdim=True)
-    return torch.where(invalid, torch.full_like(res, FULL), res)
+def _per_lane(x, like):
+    """A per-lane [L] tensor shaped to broadcast against `like` [L, ...]."""
+    return x.reshape((-1,) + (1,) * (like.dim() - 1))
 
 
-def _suffix_kmer(edge_limbs, sub_k: int):
-    """Last sub_k bases of a packed (sub_k+1)-mer: shift left one base."""
+def _prefix_masks(edge_limbs, sub_k):
+    """[L, 1, ..., nl] masks of the first sub_k bases of each lane's
+    nl-limb k-mers; limbs past sub_k are zero."""
     nl = edge_limbs.shape[-1]
-    out = []
-    for l in range(nl):
-        v = (edge_limbs[..., l] << 2) & kmers.MASK32
-        if l + 1 < nl:
-            v = v | (edge_limbs[..., l + 1] >> 30)
-        used = min(max(sub_k - 16 * l, 0), 16)
-        mask = (((1 << (2 * used)) - 1) << (32 - 2 * used)) if used else 0
-        out.append(v & mask)
-    res = torch.stack(out, dim=-1)
+    used = (sub_k[:, None] - 16 * _arange(nl, sub_k)).clamp(0, 16)
+    masks = (torch.full_like(used, FULL) << (32 - 2 * used)) & kmers.MASK32
+    return masks.reshape((-1,) + (1,) * (edge_limbs.dim() - 2) + (nl,))
+
+
+def _full_where_invalid(edge_limbs, res):
+    """res, with FULL on the rows where edge_limbs is all FULL."""
     invalid = torch.all(edge_limbs == FULL, dim=-1, keepdim=True)
     return torch.where(invalid, torch.full_like(res, FULL), res)
+
+
+def _prefix_kmer_dyn(edge_limbs, sub_k):
+    """First sub_k bases of packed (sub_k+1)-mers [L, ..., nl], sub_k a
+    per-lane int64 tensor [L]; the limb count stays nl."""
+    return _full_where_invalid(edge_limbs,
+                               edge_limbs & _prefix_masks(edge_limbs, sub_k))
+
+
+def _suffix_kmer_dyn(edge_limbs, sub_k):
+    """Last sub_k bases of packed (sub_k+1)-mers: shift left one base."""
+    nxt = torch.cat([edge_limbs[..., 1:] >> 30,
+                     torch.zeros_like(edge_limbs[..., :1])], dim=-1)
+    v = ((edge_limbs << 2) & kmers.MASK32) | nxt
+    return _full_where_invalid(edge_limbs,
+                               v & _prefix_masks(edge_limbs, sub_k))
 
 
 def _kmer_base(limbs, i: int):
     """Base code at position i of a packed k-mer."""
     l, j = divmod(i, 16)
     return ((limbs[..., l] >> (30 - 2 * j)) & 0x3).to(torch.int8)
+
+
+def _kmer_base_dyn(limbs, i):
+    """Base code at position i of packed k-mers [L, ..., nl], i a
+    per-lane int64 tensor [L] with 0 <= i < 16 * nl."""
+    limb = torch.gather(limbs, -1, _per_lane(i // 16, limbs).expand(
+        limbs.shape[:-1] + (1,)))[..., 0]
+    return ((limb >> _per_lane(30 - 2 * (i % 16), limb)) & 0x3).to(
+        torch.int8)
 
 
 def _join_ids_safe(node_keys, query_keys):
@@ -120,10 +139,10 @@ def _join_ids_safe(node_keys, query_keys):
 
 
 def _graph_chains(u_id_raw, v_id_raw, edge_valid, node_valid, N: int,
-                  sub_k: int):
+                  sub_k):
     """Degrees, chain edges, heads, ranks and tails of a [G] batch of
-    graphs. Returns the per-graph tensors the popping and emission
-    passes need."""
+    graphs (sub_k per lane, [G]). Returns the per-graph tensors the
+    popping and emission passes need."""
     G = u_id_raw.shape[0]
     dev = u_id_raw.device
     nfill = torch.full_like(u_id_raw, N)
@@ -167,7 +186,7 @@ def _graph_chains(u_id_raw, v_id_raw, edge_valid, node_valid, N: int,
     nN = torch.full_like(rep, N)
     chain_nodes = _scatter(zero, torch.where(node_valid, rep, nN), off + 1,
                            "amax")
-    ulen_all = torch.where(new_head, sub_k + chain_nodes[:, :N] - 1,
+    ulen_all = torch.where(new_head, sub_k[:, None] + chain_nodes[:, :N] - 1,
                            torch.full_like(rep, -1))
     at_tail = node_valid & (off == _gather(chain_nodes, rep) - 1)
     tail_of = _scatter(torch.full_like(zero, -1),
@@ -192,10 +211,11 @@ def _node_coverage(node_keys, occ_keys, occ_valid, occ_w):
 
 
 def _pop_bubbles_round(g, cov, edge_valid, node_valid, N: int,
-                       max_bubble_len: int):
+                       max_bubble_len):
     """One tour-bus round: delete the lowest-min-coverage branch of
-    every simple bubble (two clean chains sharing fork and join).
-    Returns the updated (node_valid, edge_valid)."""
+    every simple bubble (two clean chains sharing fork and join), a
+    branch at most max_bubble_len [G] long. Returns the updated
+    (node_valid, edge_valid)."""
     rep = g["rep"]
     G = rep.shape[0]
     idxN = _arange(N, rep).expand(G, N)
@@ -225,7 +245,7 @@ def _pop_bubbles_round(g, cov, edge_valid, node_valid, N: int,
             & (_gather(outdeg, fc) >= 2)
             & (t >= 0) & (_gather(outdeg, tc) == 1) & (j >= 0)
             & (_gather(indeg, j.clamp(0, N - 1)) >= 2)
-            & (g["ulen_all"] <= max_bubble_len))
+            & (g["ulen_all"] <= max_bubble_len[:, None]))
 
     # group branches by (fork, join); the winner sorts first by
     # (f, j, -min_cov, head id)
@@ -250,12 +270,14 @@ def _pop_bubbles_round(g, cov, edge_valid, node_valid, N: int,
     return node_valid, edge_valid
 
 
-def _core_lane(occ_keys, sub_k: int, covdata, *, max_unitigs: int,
-               max_len: int, min_len: int, pop_bubbles: int,
-               max_bubble_len: int | None, node_cap: int, edge_cap: int):
-    """DBG build + unitig emission for a [G] batch of lanes (one per
-    gap) of one setting. occ_keys: [G, Q, nl] (sub_k+1)-mer occurrence keys
-    (FULL padded); covdata: None or (keys, valid, w) sub_k-mer
+def _core_lane(occ_keys, sub_k, covdata, *, sub_k_max: int,
+               max_unitigs: int, max_len: int, min_len: int,
+               pop_bubbles: int, max_bubble_len: int | None, node_cap: int,
+               edge_cap: int):
+    """DBG build + unitig emission for a [G] batch of lanes, one a
+    (setting, gap) pair. occ_keys: [G, Q, nl] (sub_k+1)-mer occurrence
+    keys (FULL padded); sub_k: int64 [G], each lane's, at most the
+    static sub_k_max; covdata: None or (keys, valid, w) sub_k-mer
     occurrences for bubble-pop coverage."""
     dev = occ_keys.device
     G = occ_keys.shape[0]
@@ -268,8 +290,8 @@ def _core_lane(occ_keys, sub_k: int, covdata, *, max_unitigs: int,
     E = edge_keys.shape[1]
     edge_valid = _arange(E, edge_keys) < n_edges[:, None]
 
-    u_keys = _prefix_kmer(edge_keys, sub_k)
-    v_keys = _suffix_kmer(edge_keys, sub_k)
+    u_keys = _prefix_kmer_dyn(edge_keys, sub_k)
+    v_keys = _suffix_kmer_dyn(edge_keys, sub_k)
     nl = u_keys.shape[-1]
     q = torch.cat([u_keys, v_keys], dim=1)                    # [G, 2E, nl]
     pay = _arange(2 * E, q).expand(G, 2 * E)
@@ -300,7 +322,8 @@ def _core_lane(occ_keys, sub_k: int, covdata, *, max_unitigs: int,
     # ---- bubble popping --------------------------------------------------
     if pop_bubbles > 0:
         cov = _node_coverage(node_keys, *covdata)
-        mbl = 2 * (sub_k + 1) if max_bubble_len is None else max_bubble_len
+        mbl = (2 * (sub_k + 1) if max_bubble_len is None
+               else torch.full_like(sub_k, max_bubble_len))
         for _ in range(pop_bubbles):
             g = _graph_chains(u_id_raw, v_id_raw, edge_valid, node_valid,
                               N, sub_k)
@@ -327,7 +350,8 @@ def _core_lane(occ_keys, sub_k: int, covdata, *, max_unitigs: int,
     tip_a = head_dead & ~tail_dead & _gather(succ_branch, tailc) & \
         (tail_of >= 0)
     tip_b = ~head_dead & tail_dead & pred_branch
-    is_tip = new_head & (tip_a | tip_b) & (ulen_all < 2 * (sub_k + 1))
+    is_tip = new_head & (tip_a | tip_b) & \
+        (ulen_all < 2 * (sub_k[:, None] + 1))
 
     U = max_unitigs
     eligible = new_head & (ulen_all >= min_len) & ~is_tip
@@ -343,12 +367,12 @@ def _core_lane(occ_keys, sub_k: int, covdata, *, max_unitigs: int,
     # ---- materialise sequences -------------------------------------------
     topc = top.clamp(0, N - 1)
     head_keys = torch.gather(node_keys, 1, topc[..., None].expand(G, U, nl))
-    cols = min(sub_k, max_len)
+    cols = min(sub_k_max, max_len)
     nN = torch.full_like(rep, N)
     # tail bases: node v at offset o >= 1 contributes its last base; a
     # sort by (unitig, offset) makes each unitig's chain one ascending run
     vuid = _gather(uidx_of, torch.where(node_valid, rep, nN))
-    lastb = _kmer_base(node_keys, sub_k - 1)
+    lastb = _kmer_base_dyn(node_keys, sub_k - 1)
     w = (vuid >= 0) & (off >= 1) & node_valid
     SHIFT = 1 << 16
     skey = torch.where(w, vuid, torch.full_like(vuid, U)) * SHIFT + \
@@ -358,9 +382,10 @@ def _core_lane(occ_keys, sub_k: int, covdata, *, max_unitigs: int,
     seg_start = torch.searchsorted(skey_s.contiguous(),
                                    (uarange * SHIFT).contiguous())
     pcol = _arange(max_len, top)[None, None, :]
-    gidx = seg_start[..., None] + pcol - sub_k
+    gidx = seg_start[..., None] + pcol - sub_k[:, None, None]
     ulen_top = _gather(ulen_all, top)
-    tail_ok = (pcol >= min(sub_k, max_len)) & \
+    head_len = torch.clamp(sub_k, max=max_len)[:, None, None]
+    tail_ok = (pcol >= head_len) & \
         (pcol < torch.clamp(ulen_top, max=max_len)[..., None]) & \
         top_ok[..., None]
     tails = _gather(lastb_s, gidx.clamp(0, N - 1)).to(torch.int8)
@@ -369,11 +394,8 @@ def _core_lane(occ_keys, sub_k: int, covdata, *, max_unitigs: int,
     if cols:
         prefix = torch.stack([_kmer_base(head_keys, i) for i in range(cols)],
                              dim=-1)                         # [G, U, cols]
-        colmask = top_ok[..., None].expand(G, U, cols)
-        out[..., :cols] = torch.where(
-            colmask, prefix,
-            torch.where(tail_ok[..., :cols], tails[..., :cols],
-                        nfill8[..., :cols]))
+        colmask = (pcol[..., :cols] < head_len) & top_ok[..., None]
+        out[..., :cols] = torch.where(colmask, prefix, out[..., :cols])
     lens = _scatter(torch.zeros(G, U + 1, dtype=torch.int64, device=dev),
                     torch.where(top_ok, uarange, torch.full_like(top, U)),
                     torch.where(top_ok, torch.clamp(ulen_top, max=max_len),
@@ -407,9 +429,9 @@ def _core_lane(occ_keys, sub_k: int, covdata, *, max_unitigs: int,
             n_nodes_raw.to(torch.int32), n_edges_raw.to(torch.int32))
 
 
-def _flat_pad(limbs, nl_pad: int):
-    """[G, ..., nl] -> [G, X, nl_pad]; extra limbs are zero (FULL on
-    invalid rows), which keeps lexicographic order."""
+def _flat_pad(limbs, nl_pad: int, cap: int):
+    """[G, ..., nl] -> [G, cap, nl_pad]: extra limbs are zero (FULL on
+    invalid rows), which keeps lexicographic order; extra rows FULL."""
     G, nl = limbs.shape[0], limbs.shape[-1]
     flat = limbs.reshape(G, -1, nl)
     if nl < nl_pad:
@@ -418,17 +440,28 @@ def _flat_pad(limbs, nl_pad: int):
                            torch.full_like(inval, FULL, dtype=flat.dtype),
                            torch.zeros_like(inval, dtype=flat.dtype))
         flat = torch.cat([flat] + [tail] * (nl_pad - nl), dim=-1)
-    return flat
+    return _pad_rows(flat, cap, FULL)
+
+
+def _pad_rows(x, cap: int, fill):
+    """x [G, X, ...] -> [G, cap, ...], the extra rows `fill`."""
+    if x.shape[1] >= cap:
+        return x
+    pad = torch.full((x.shape[0], cap - x.shape[1]) + tuple(x.shape[2:]),
+                     fill, dtype=x.dtype, device=x.device)
+    return torch.cat([x, pad], dim=1)
 
 
 def _occurrence_prep(kstrings, n_kstrings, kcounts, *, k: int, sub_k: int,
+                     nl_pad: int, occ_cap: int, occn_cap: int,
                      pop_bubbles: int):
-    """(sub_k+1)-mer occurrence keys [G, 2M(k-sub_k), nl] of the
-    distinct k-strings + revcomps, and (when popping) the sub_k-mer
-    occurrences (keys, valid, weights) for node coverage."""
+    """One setting's lanes of a batch: the (sub_k+1)-mer occurrence keys
+    [G, occ_cap, nl_pad] of the distinct k-strings + revcomps, and (when
+    popping) the sub_k-mer occurrences (keys [G, occn_cap, nl_pad],
+    valid, weights) for node coverage. Padded rows are FULL (invalid,
+    weight 0)."""
     G, M, kk = kstrings.shape
     assert kk == k and sub_k < k
-    nl_pad = kmers.num_limbs(sub_k + 1)
     row_valid = _arange(M, kstrings) < n_kstrings[:, None]
     fwd = torch.where(row_valid[..., None], kstrings,
                       torch.full_like(kstrings, dna.N))
@@ -437,7 +470,7 @@ def _occurrence_prep(kstrings, n_kstrings, kcounts, *, k: int, sub_k: int,
     rv2 = torch.cat([row_valid, row_valid], dim=1)
     blen = torch.where(rv2, k, 0)
     elimb, _ = kmers.extract_kmers(both, blen, sub_k + 1)
-    occ = _flat_pad(elimb, nl_pad)
+    occ = _flat_pad(elimb, nl_pad, occ_cap)
 
     cov = None
     if pop_bubbles > 0:
@@ -447,10 +480,65 @@ def _occurrence_prep(kstrings, n_kstrings, kcounts, *, k: int, sub_k: int,
         rc2 = torch.cat([row_counts, row_counts], dim=1)     # [G, 2M]
         nlimb, nval = kmers.extract_kmers(both, blen, sub_k)
         P1 = nlimb.shape[2]
-        nkeys = _flat_pad(nlimb, nl_pad)
         wgt = rc2[:, :, None].expand(G, 2 * M, P1).reshape(G, -1)
-        cov = (nkeys, nval.reshape(G, -1), wgt)
+        cov = (_flat_pad(nlimb, nl_pad, occn_cap),
+               _pad_rows(nval.reshape(G, -1), occn_cap, False),
+               _pad_rows(wgt, occn_cap, 0))
     return occ, cov
+
+
+def _lanes_cat(xs):
+    return xs[0] if len(xs) == 1 else torch.cat(xs, dim=0)
+
+
+def assemble_unitigs_multi(kstr_list, nk_list, kcnt_list, *, settings,
+                           max_unitigs: int = 64, max_len: int = 1024,
+                           min_len: int = 40, pop_bubbles: int = 0,
+                           max_bubble_len: int | None = None,
+                           node_cap: int, edge_cap: int):
+    """Every (k, sub_k) setting over a gap batch, one lane a (setting,
+    gap) pair with its sub_k as per-lane data.
+
+    kstr_list / nk_list / kcnt_list: per setting int8 [G, M_s, k_s] /
+    [G] / ([G, M_s] or None); kcnt_list may be None. node_cap/edge_cap:
+    uniform caps. Settings group by occurrence rows 2 M_s (k_s - sub_k_s),
+    so a (k, k-1) setting is not padded to a (k, k-3) one's rows; each
+    group is one batch through `_core_lane`, its keys padded to the
+    group's widest limb count. Returns, per setting, (useq int8
+    [G, U, max_len], ulen int32 [G, U], count int32 [G], n_nodes_raw,
+    n_edges_raw int32 [G])."""
+    G = kstr_list[0].shape[0]
+    dev = kstr_list[0].device
+    groups: dict[int, list[int]] = {}
+    for i, (k, sk) in enumerate(settings):
+        groups.setdefault(2 * kstr_list[i].shape[1] * (k - sk),
+                          []).append(i)
+    results: list = [None] * len(settings)
+    for occ_cap, idxs in sorted(groups.items()):
+        sub_set = [settings[i][1] for i in idxs]
+        nl_pad = max(kmers.num_limbs(sk + 1) for sk in sub_set)
+        occn_cap = max(2 * kstr_list[i].shape[1]
+                       * (settings[i][0] - settings[i][1] + 1)
+                       for i in idxs)
+        preps = [_occurrence_prep(
+            kstr_list[i], nk_list[i],
+            None if kcnt_list is None else kcnt_list[i],
+            k=settings[i][0], sub_k=settings[i][1], nl_pad=nl_pad,
+            occ_cap=occ_cap, occn_cap=occn_cap, pop_bubbles=pop_bubbles)
+            for i in idxs]
+        cov = None if pop_bubbles == 0 else tuple(
+            _lanes_cat([p[1][j] for p in preps]) for j in range(3))
+        sub_k = _lanes_cat([torch.full((G,), sk, dtype=torch.int64,
+                                       device=dev) for sk in sub_set])
+        out = _core_lane(_lanes_cat([p[0] for p in preps]), sub_k, cov,
+                         sub_k_max=max(sub_set), max_unitigs=max_unitigs,
+                         max_len=max_len, min_len=min_len,
+                         pop_bubbles=pop_bubbles,
+                         max_bubble_len=max_bubble_len, node_cap=node_cap,
+                         edge_cap=edge_cap)
+        for j, i in enumerate(idxs):
+            results[i] = tuple(x[j * G:(j + 1) * G] for x in out)
+    return results
 
 
 def assemble_unitigs(kstrings, n_kstrings, kcounts=None, *, k: int,
@@ -460,23 +548,22 @@ def assemble_unitigs(kstrings, n_kstrings, kcounts=None, *, k: int,
                      node_cap: int | None = None,
                      edge_cap: int | None = None):
     """Batched over gaps, one (k, sub_k) setting: kstrings int8
-    [G, M, k], n_kstrings [G], kcounts optional [G, M].
+    [G, M, k], n_kstrings [G], kcounts optional [G, M]. A thin wrapper
+    over `assemble_unitigs_multi` with one setting.
 
     Returns (useq int8 [G, U, max_len], ulen int32 [G, U], count int32
     [G]); with node_cap/edge_cap given also (n_nodes_raw, n_edges_raw)
     int32 [G] for overflow detection. Without caps, provably sufficient
     bounds are used (2E endpoint rows bound the distinct nodes)."""
     M = kstrings.shape[1]
-    occ_n = 2 * M * (k - sub_k)
     capped = node_cap is not None or edge_cap is not None
-    ecap = occ_n if edge_cap is None else edge_cap
+    ecap = 2 * M * (k - sub_k) if edge_cap is None else edge_cap
     ncap = 2 * ecap if node_cap is None else node_cap
-    occ, cov = _occurrence_prep(kstrings, n_kstrings, kcounts, k=k,
-                                sub_k=sub_k, pop_bubbles=pop_bubbles)
-    res = _core_lane(occ, sub_k, cov, max_unitigs=max_unitigs,
-                     max_len=max_len, min_len=min_len,
-                     pop_bubbles=pop_bubbles, max_bubble_len=max_bubble_len,
-                     node_cap=ncap, edge_cap=ecap)
+    res = assemble_unitigs_multi(
+        (kstrings,), (n_kstrings,), None if kcounts is None else (kcounts,),
+        settings=((k, sub_k),), max_unitigs=max_unitigs, max_len=max_len,
+        min_len=min_len, pop_bubbles=pop_bubbles,
+        max_bubble_len=max_bubble_len, node_cap=ncap, edge_cap=ecap)[0]
     return res if capped else res[:3]
 
 

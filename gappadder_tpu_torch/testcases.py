@@ -1,6 +1,6 @@
 """Inputs for holding the hand-written kernels against their plain
 versions (SW query/target pairs, the sort's cases, the probe kernels'
-inputs) and scenarios written as files for the pipeline's stages (the
+inputs), the multi-setting DBG's toy batches, and scenarios written as files for the pipeline's stages (the
 Assembly driver's workspace, Collect's draft, BAM and FASTQs, the CLI's
 JSON config) and the comparison of two workspaces. Used by the tests
 and by chip_smoke.py; no pipeline path imports this module."""
@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from . import dna
 from .pipeline.assemble import FULL
 
 # entry_cap of the production step (64 gaps of up to 1000 bp, 100 bp
@@ -89,6 +90,93 @@ def sort_case(name: str, seed: int = 0):
     pays = [rng.integers(-(1 << 31), 1 << 31, shape).astype(np.int64)
             for _ in range(npay)]
     return keys + pays, nk
+
+
+# name -> a toy batch of the multi-setting DBG
+# (ops/dbg.assemble_unitigs_multi), 2 gaps: (kind, settings, rows M of
+# each setting's table, gap 1 "empty" or "half" of gap 0's set, keyword
+# arguments). "walks": random sequences, a shared stretch and a forced
+# cycle at each k; "snp": a single-base error path at count 1 beside the
+# truth at count 8 (no counts otherwise). two_groups: settings in two
+# occurrence-row groups; mixed_limbs: one group mixing k, so the keys
+# pad to 3 limbs (sub_k 15 beside 16 and 32), popping without counts;
+# snp_pop1/2: one group's settings at different M (coverage rows padded)
+# and a second group; caps: raw node and edge counts past the caps
+_WALK_KW = dict(max_unitigs=16, max_len=256, min_len=14, pop_bubbles=0,
+                node_cap=1024, edge_cap=1024)
+_SNP_KW = dict(max_unitigs=16, max_len=256, min_len=10, node_cap=1024,
+               edge_cap=1024)
+DBG_MULTI_CASES = {
+    "two_groups": ("walks", ((17, 16), (17, 14), (21, 20), (21, 18)),
+                   (300, 300, 300, 300), "empty", _WALK_KW),
+    "mixed_limbs": ("walks", ((16, 15), (17, 16), (33, 32)),
+                    (320, 320, 320), "half", dict(_WALK_KW, pop_bubbles=1)),
+    "snp_pop1": ("snp", ((21, 20), (21, 19), (33, 16)), (320, 160, 160),
+                 "empty", dict(_SNP_KW, pop_bubbles=1)),
+    "snp_pop2": ("snp", ((21, 20), (21, 19), (33, 16)), (320, 160, 160),
+                 "half", dict(_SNP_KW, pop_bubbles=2)),
+    "caps": ("walks", ((17, 16), (17, 14), (21, 20), (21, 18)),
+             (300, 300, 300, 300), "half",
+             dict(_WALK_KW, node_cap=64, edge_cap=64)),
+}
+
+
+def _bases(rng, n: int) -> str:
+    return "".join(np.array(list("ACGT"))[rng.integers(0, 4, n)])
+
+
+def _canonical(seq: str) -> str:
+    return min(seq, dna.decode(dna.revcomp(dna.encode(seq))))
+
+
+def _walk_kstrings(k: int, seed: int = 1) -> list:
+    """The distinct canonical k-strings of three random sequences (one
+    sharing a stretch of the first) and a periodic one (period k + 1)
+    whose graph is a cycle."""
+    rng = np.random.default_rng(seed)
+    base = _bases(rng, 120)
+    per = _bases(rng, k + 1)
+    seqs = [base, base[20:80] + _bases(rng, 40), _bases(rng, 70),
+            (per * 5)[:3 * k + 7]]
+    return sorted({_canonical(s[i:i + k]) for s in seqs
+                   for i in range(len(s) - k + 1)})
+
+
+def _snp_kstrings(k: int, seed: int = 5):
+    """The truth's k-strings at count 8 and those a single-base error
+    adds at count 1."""
+    rng = np.random.default_rng(seed)
+    truth = _bases(rng, 150)
+    alt = {"A": "C", "C": "G", "G": "T", "T": "A"}[truth[75]]
+    err = truth[:75] + alt + truth[76:]
+    kt = [truth[i:i + k] for i in range(len(truth) - k + 1)]
+    ke = [s for s in (err[i:i + k] for i in range(len(err) - k + 1))
+          if s not in set(kt)]
+    return kt + ke, [8] * len(kt) + [1] * len(ke)
+
+
+def dbg_multi_case(name: str):
+    """DBG_MULTI_CASES[name] as numpy inputs: (settings, kstr_list int8
+    [2, M, k], nk_list int32 [2], kcnt_list int32 [2, M] or None,
+    keyword arguments)."""
+    kind, settings, rows, gap1, kw = DBG_MULTI_CASES[name]
+    kstr, nk, kcnt = [], [], []
+    for (k, _sk), M in zip(settings, rows):
+        if kind == "walks":
+            ks, cnt = _walk_kstrings(k), None
+        else:
+            ks, cnt = _snp_kstrings(k)
+        assert len(ks) <= M
+        arr = np.full((2, M, k), dna.N, np.int8)
+        arr[:, :len(ks)] = np.stack([dna.encode(s) for s in ks])
+        kstr.append(arr)
+        nk.append(np.array([len(ks), 0 if gap1 == "empty" else len(ks) // 2],
+                           np.int32))
+        if cnt is not None:
+            c = np.zeros((2, M), np.int32)
+            c[:, :len(ks)] = cnt
+            kcnt.append(c)
+    return settings, kstr, nk, (kcnt or None), dict(kw)
 
 
 def sw_test_pairs(seed, B=40, Lq=24, Lt=48):

@@ -1,7 +1,7 @@
 """The port's CUDA paths on a card: the SW, sort and probe kernels
 against their plain versions, and the fused step, the Assembly batch,
-Pick, the Assembly+Pick driver, Preprocess and Collect and the CLI on
-the card against their CPU runs.
+Pick, the Assembly+Pick driver, Preprocess and Collect, the CLI and
+the multi-setting DBG on the card against their CPU runs.
 These
 tests need a CUDA device and skip elsewhere; they import no JAX, so
 they also run where only the port's dependencies are installed:
@@ -16,14 +16,15 @@ import pytest
 import torch
 
 from gappadder_tpu_torch import probes
-from gappadder_tpu_torch.ops import psort, sw_cuda, sw_host
+from gappadder_tpu_torch.ops import dbg, psort, sw_cuda, sw_host
 from gappadder_tpu_torch.parallel import slice as sl
 from gappadder_tpu_torch.probes import int16_repro, swprobe
 from gappadder_tpu_torch.probes import kernel_experiments as ke
-from gappadder_tpu_torch.testcases import (ARGMAX_INPUTS, INT16_LOOP_INPUTS,
-                                           SORT_CASES, SW_EDGE_SHAPES,
-                                           SW_STRIP_SHAPES, SWPROBE_INPUTS,
-                                           SWPROBE_SHAPES, driver_workspace,
+from gappadder_tpu_torch.testcases import (ARGMAX_INPUTS, DBG_MULTI_CASES,
+                                           INT16_LOOP_INPUTS, SORT_CASES,
+                                           SW_EDGE_SHAPES, SW_STRIP_SHAPES,
+                                           SWPROBE_INPUTS, SWPROBE_SHAPES,
+                                           dbg_multi_case, driver_workspace,
                                            probe_input, sort_case,
                                            sw_edge_pairs, sw_strip_pairs,
                                            sw_test_pairs)
@@ -563,3 +564,22 @@ def test_two_shards_on_one_card_match_the_one_shard_step(cuda):
     for a, b in list(zip(one, two))[3:]:
         np.testing.assert_array_equal(a, b[rows])
     assert two[0][:7].tolist() == one[0][:7].tolist()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(DBG_MULTI_CASES))
+def test_dbg_multi_on_the_card_matches_the_cpu(cuda, name):
+    """The multi-setting DBG on the card equals its CPU run, every output
+    of every setting, at the toy batches of the CPU parity tests."""
+    settings, ks, nk, kc, kw = dbg_multi_case(name)
+    outs = []
+    before = psort.launches
+    for dev in (cuda, torch.device("cpu")):
+        on = lambda xs: None if xs is None else [
+            torch.from_numpy(x).to(dev) for x in xs]
+        outs.append(dbg.assemble_unitigs_multi(on(ks), on(nk), on(kc),
+                                               settings=settings, **kw))
+    assert psort.launches > before
+    for got, want in zip(*outs):
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
