@@ -1,0 +1,10 @@
+"""The SW kernel's share of its roofline over the traced steps (%):
+live cells at 3 lane instructions a cell over the card's issue
+ceiling, against the device time of every kernel launched inside
+`sw_batch_cuda`."""
+
+from portbench.metrics._roofline import kernel_share
+
+
+def read(ctx):
+    return kernel_share(ctx, "sw")
