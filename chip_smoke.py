@@ -1632,7 +1632,6 @@ def cli_phase(root, chain, dev, reset_counts, read_counts) -> dict:
     def cli_run(*argv):
         """cli.main on the config; returns (printed lines, wall s,
         metrics.json's stages of this run)."""
-        meters.GLOBAL.stages.clear()
         out = io.StringIO()
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -2790,7 +2789,6 @@ def kernel_profile(fn, reps: int, tag: str) -> tuple:
     first and eight last: a profiling run can miss launches at its
     edges (its first one; late in a long process on an H100, 4 of each
     run)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     warm = torch.zeros(1, device="cuda")
@@ -2804,7 +2802,7 @@ def kernel_profile(fn, reps: int, tag: str) -> tuple:
         for _ in range(8):
             warm.add_(1)
         torch.cuda.synchronize()
-    cuda = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    cuda = device_ops(prof)
     mine = [e for e in cuda if tag in e.name]
     adds = [e.self_device_time_total for e in cuda
             if "add" in e.name and tag not in e.name]
@@ -2834,6 +2832,15 @@ def block_times(sl, dims, a):
             "block4_ms": ev[2].elapsed_time(ev[3])}
 
 
+def device_ops(prof):
+    """The profiled device operations: the CUDA events but the device
+    copies of the program's spans (`gappadder::` ranges)."""
+    from torch.autograd import DeviceType
+    from gappadder_tpu_torch.utils import meters
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not e.name.startswith(meters.PREFIX)]
+
+
 def profile_step(fn, hand: dict, tries: int = 3, top: int = 10):
     """One production step (fn) under torch.profiler (`profile_one_step`),
     taken again, up to `tries` runs, until the profiler saw each hand
@@ -2861,7 +2868,6 @@ def profile_one_step(fn, top: int):
     device kernels (one stream, so they do not overlap), their count,
     the profiled wall time, the hand kernels' device ms and CUDA
     launches, and the torch operators with the most device time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2870,7 +2876,7 @@ def profile_one_step(fn, top: int):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = device_ops(prof)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     ops = sorted((e for e in prof.key_averages()
                   if e.key.startswith("aten::")),

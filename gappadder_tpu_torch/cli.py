@@ -29,6 +29,7 @@ at the stage boundaries.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import shutil
 import sys
@@ -93,7 +94,7 @@ def main(argv=None):
     from .io import fasta
     from .pipeline import collect, patch, preprocess, run
     from .pipeline.workspace import Workspace, config_hash
-    from .utils.meters import GLOBAL as METERS, device_trace
+    from .utils import meters
 
     cfg = load_config(args.config)
     ws = Workspace(cfg.workdir)
@@ -112,32 +113,43 @@ def main(argv=None):
             return False
         return True
 
-    genome = fasta.read_fasta(cfg.draft_genome)
-    with device_trace(args.trace, device):
+    @contextlib.contextmanager
+    def stage(name):
+        """A CLI stage's span, which records at its end the card's
+        allocated bytes and the process's peak so far."""
+        with meters.span(name) as s:
+            yield s
+            meters.memory(s, device)
+
+    # this call's spans, written to metrics.json at the end
+    with meters.Meters() as metered, \
+            meters.device_trace(args.trace, device):
+        with meters.span("cli.read_draft"):
+            genome = fasta.read_fasta(cfg.draft_genome)
         if wants("Preprocess", "preprocess"):
-            with METERS.stage("preprocess") as m:
+            with stage("preprocess") as s:
                 table = preprocess.run_preprocess(
                     cfg, ws, genome=genome,
                     write_parity_files=args.parity_files, device=device)
-                m["gaps"] = len(table["start"])
-            print(f"[preprocess] {m['gaps']} gaps")
+                n_gaps = len(table["start"])
+                s.add(gaps=n_gaps)
+            print(f"[preprocess] {n_gaps} gaps")
             mp.barrier("preprocess")   # later stages read process 0's files
         if wants("Collect", "collect"):
-            with METERS.stage("collect") as m:
+            with stage("collect") as s:
                 rec, _ = collect.run_collect(
                     cfg, ws, genome=genome,
                     write_parity_files=args.parity_files, device=device)
-                m["recruits"] = len(rec["gap"])
-            print(f"[collect] {m['recruits']} recruited read assignments")
+                s.add(recruits=len(rec["gap"]))
+            print(f"[collect] {len(rec['gap'])} recruited read assignments")
             mp.barrier("collect")
         if wants("Assembly", "assembly"):
-            with METERS.stage("assembly") as m:
+            with stage("assembly") as s:
                 fills, exts, _ = run.run_assembly_and_pick(
                     cfg, ws, genome=genome, device=device)
-                m["closed"] = len(fills)
-                m["extended"] = len(exts)
-            print(f"[assembly] {m['closed']} gaps closed, "
-                  f"{m['extended']} extended -> "
+                s.add(closed=len(fills), extended=len(exts))
+            print(f"[assembly] {len(fills)} gaps closed, "
+                  f"{len(exts)} extended -> "
                   f"{ws.path('picked_seqs.fa')}")
             mp.barrier("assembly")
         if cmd == "Evaluate":
@@ -145,18 +157,19 @@ def main(argv=None):
                 print("Evaluate needs --finished <genome.fa>",
                       file=sys.stderr)
                 return 2
-            with METERS.stage("evaluate"):
+            with stage("evaluate"):
                 _evaluate(cfg, ws, args.finished, device)
         if cmd in ("Patch", "All"):
-            with METERS.stage("patch") as m:
-                m["filled"] = patch.run_patch(cfg, ws, genome=genome)
+            with stage("patch") as s:
+                filled = patch.run_patch(cfg, ws, genome=genome)
+                s.add(filled=filled)
             print(f"[patch] wrote {ws.path('filled_scaffolds.fa')} "
-                  f"({m['filled']} gaps filled)")
+                  f"({filled} gaps filled)")
             mp.barrier("patch")
     if mp.is_primary():
-        METERS.dump(ws.path("metrics.json"))
+        metered.dump(ws.path("metrics.json"))
     if cfg.verbose:
-        print(METERS.report())
+        print(metered.report())
     return 0
 
 

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from .. import dna
+from ..utils.meters import span, spanned
 from . import kmers, psort
 
 FULL = 0xFFFFFFFF
@@ -281,152 +282,165 @@ def _core_lane(occ_keys, sub_k, covdata, *, sub_k_max: int,
     occurrences for bubble-pop coverage."""
     dev = occ_keys.device
     G = occ_keys.shape[0]
-    # ---- edges, then nodes from the edge endpoints -----------------------
-    edge_keys, n_edges = _unique_compact(occ_keys)
-    n_edges_raw = n_edges
-    if edge_cap < edge_keys.shape[1]:
-        edge_keys = edge_keys[:, :edge_cap]
-        n_edges = torch.clamp(n_edges, max=edge_cap)
-    E = edge_keys.shape[1]
-    edge_valid = _arange(E, edge_keys) < n_edges[:, None]
+    with span("dbg.graph"):
+        # ---- edges, then nodes from the edge endpoints -------------------
+        edge_keys, n_edges = _unique_compact(occ_keys)
+        n_edges_raw = n_edges
+        if edge_cap < edge_keys.shape[1]:
+            edge_keys = edge_keys[:, :edge_cap]
+            n_edges = torch.clamp(n_edges, max=edge_cap)
+        E = edge_keys.shape[1]
+        edge_valid = _arange(E, edge_keys) < n_edges[:, None]
 
-    u_keys = _prefix_kmer_dyn(edge_keys, sub_k)
-    v_keys = _suffix_kmer_dyn(edge_keys, sub_k)
-    nl = u_keys.shape[-1]
-    q = torch.cat([u_keys, v_keys], dim=1)                    # [G, 2E, nl]
-    pay = _arange(2 * E, q).expand(G, 2 * E)
-    res = psort.bitonic_sort(tuple(q[..., l] for l in range(nl)) + (pay,),
-                             num_keys=nl)
-    sq = torch.stack(res[:nl], dim=-1)
-    spay = res[nl]
-    firsts = kmers.unique_mask(sq) & ~torch.all(sq == FULL, dim=-1)
-    rank = torch.cumsum(firsts.to(torch.int64), dim=-1) - 1
-    n_nodes_raw = firsts.sum(-1)
+        u_keys = _prefix_kmer_dyn(edge_keys, sub_k)
+        v_keys = _suffix_kmer_dyn(edge_keys, sub_k)
+        nl = u_keys.shape[-1]
+        q = torch.cat([u_keys, v_keys], dim=1)                # [G, 2E, nl]
+        pay = _arange(2 * E, q).expand(G, 2 * E)
+        res = psort.bitonic_sort(
+            tuple(q[..., l] for l in range(nl)) + (pay,), num_keys=nl)
+        sq = torch.stack(res[:nl], dim=-1)
+        spay = res[nl]
+        firsts = kmers.unique_mask(sq) & ~torch.all(sq == FULL, dim=-1)
+        rank = torch.cumsum(firsts.to(torch.int64), dim=-1) - 1
+        n_nodes_raw = firsts.sum(-1)
 
-    N = node_cap
-    n_nodes = torch.clamp(n_nodes_raw, max=N)
-    node_valid = _arange(N, q) < n_nodes[:, None]
-    rank_c = rank.clamp(0, N - 1)
-    # compacted sorted-unique node keys (first occurrences only)
-    node_keys = torch.full((G, N + 1, nl), FULL, dtype=torch.int64,
-                           device=dev)
-    b = _arange(G, q)[:, None].expand(G, 2 * E)
-    node_keys[b, torch.where(firsts & (rank < N), rank_c,
-                             torch.full_like(rank_c, N))] = sq
-    node_keys = node_keys[:, :N]
-    # endpoint ids back to edge order (spay is a permutation)
-    ids = _scatter(torch.zeros(G, 2 * E, dtype=torch.int64, device=dev),
-                   spay, rank_c)
-    u_id_raw, v_id_raw = ids[:, :E], ids[:, E:]
+        N = node_cap
+        n_nodes = torch.clamp(n_nodes_raw, max=N)
+        node_valid = _arange(N, q) < n_nodes[:, None]
+        rank_c = rank.clamp(0, N - 1)
+        # compacted sorted-unique node keys (first occurrences only)
+        node_keys = torch.full((G, N + 1, nl), FULL, dtype=torch.int64,
+                               device=dev)
+        b = _arange(G, q)[:, None].expand(G, 2 * E)
+        node_keys[b, torch.where(firsts & (rank < N), rank_c,
+                                 torch.full_like(rank_c, N))] = sq
+        node_keys = node_keys[:, :N]
+        # endpoint ids back to edge order (spay is a permutation)
+        ids = _scatter(
+            torch.zeros(G, 2 * E, dtype=torch.int64, device=dev), spay,
+            rank_c)
+        u_id_raw, v_id_raw = ids[:, :E], ids[:, E:]
 
-    # ---- bubble popping --------------------------------------------------
-    if pop_bubbles > 0:
-        cov = _node_coverage(node_keys, *covdata)
-        mbl = (2 * (sub_k + 1) if max_bubble_len is None
-               else torch.full_like(sub_k, max_bubble_len))
-        for _ in range(pop_bubbles):
-            g = _graph_chains(u_id_raw, v_id_raw, edge_valid, node_valid,
-                              N, sub_k)
-            node_valid, edge_valid = _pop_bubbles_round(
-                g, cov, edge_valid, node_valid, N, mbl)
+    with span("dbg.chains"):
+        # ---- bubble popping ----------------------------------------------
+        if pop_bubbles > 0:
+            cov = _node_coverage(node_keys, *covdata)
+            mbl = (2 * (sub_k + 1) if max_bubble_len is None
+                   else torch.full_like(sub_k, max_bubble_len))
+            for _ in range(pop_bubbles):
+                g = _graph_chains(u_id_raw, v_id_raw, edge_valid,
+                                  node_valid, N, sub_k)
+                node_valid, edge_valid = _pop_bubbles_round(
+                    g, cov, edge_valid, node_valid, N, mbl)
 
-    g = _graph_chains(u_id_raw, v_id_raw, edge_valid, node_valid, N, sub_k)
+        g = _graph_chains(u_id_raw, v_id_raw, edge_valid, node_valid, N,
+                          sub_k)
     u_id, v_id = g["u_id"], g["v_id"]
     outdeg, indeg = g["outdeg"], g["indeg"]
     new_head, rep, off = g["new_head"], g["rep"], g["off"]
     ulen_all, tail_of = g["ulen_all"], g["tail_of"]
 
-    # ---- tip clipping: a short chain dead at one end whose junction has
-    # an alternative continuation
-    head_dead = indeg[:, :N] == 0
-    tailc = tail_of.clamp(0, N - 1)
-    tail_dead = torch.where(tail_of >= 0, _gather(outdeg, tailc) == 0,
-                            torch.ones_like(head_dead))
-    zero = torch.zeros(G, N + 1, dtype=torch.int64, device=dev)
-    pred_branch = _scatter(zero, v_id, _gather(outdeg, u_id),
-                           "amax")[:, :N] >= 2
-    succ_branch = _scatter(zero, u_id, _gather(indeg, v_id),
-                           "amax")[:, :N] >= 2
-    tip_a = head_dead & ~tail_dead & _gather(succ_branch, tailc) & \
-        (tail_of >= 0)
-    tip_b = ~head_dead & tail_dead & pred_branch
-    is_tip = new_head & (tip_a | tip_b) & \
-        (ulen_all < 2 * (sub_k[:, None] + 1))
+    with span("dbg.emit"):
+        # ---- tip clipping: a short chain dead at one end whose junction
+        # has an alternative continuation
+        head_dead = indeg[:, :N] == 0
+        tailc = tail_of.clamp(0, N - 1)
+        tail_dead = torch.where(tail_of >= 0, _gather(outdeg, tailc) == 0,
+                                torch.ones_like(head_dead))
+        zero = torch.zeros(G, N + 1, dtype=torch.int64, device=dev)
+        pred_branch = _scatter(zero, v_id, _gather(outdeg, u_id),
+                               "amax")[:, :N] >= 2
+        succ_branch = _scatter(zero, u_id, _gather(indeg, v_id),
+                               "amax")[:, :N] >= 2
+        tip_a = head_dead & ~tail_dead & _gather(succ_branch, tailc) & \
+            (tail_of >= 0)
+        tip_b = ~head_dead & tail_dead & pred_branch
+        is_tip = new_head & (tip_a | tip_b) & \
+            (ulen_all < 2 * (sub_k[:, None] + 1))
 
-    U = max_unitigs
-    eligible = new_head & (ulen_all >= min_len) & ~is_tip
-    sort_key = torch.where(eligible, -ulen_all, torch.ones_like(ulen_all))
-    order = torch.sort(sort_key, dim=-1, stable=True).indices  # longest first
-    top = order[:, :U]
-    top_ok = _gather(eligible, top)
-    uarange = _arange(U, top).expand(G, U)
-    uidx_of = _scatter(torch.full_like(zero, -1),
-                       torch.where(top_ok, top, torch.full_like(top, N)),
-                       torch.where(top_ok, uarange, torch.full_like(top, -1)))
+        U = max_unitigs
+        eligible = new_head & (ulen_all >= min_len) & ~is_tip
+        sort_key = torch.where(eligible, -ulen_all,
+                               torch.ones_like(ulen_all))
+        # longest first
+        order = torch.sort(sort_key, dim=-1, stable=True).indices
+        top = order[:, :U]
+        top_ok = _gather(eligible, top)
+        uarange = _arange(U, top).expand(G, U)
+        uidx_of = _scatter(
+            torch.full_like(zero, -1),
+            torch.where(top_ok, top, torch.full_like(top, N)),
+            torch.where(top_ok, uarange, torch.full_like(top, -1)))
 
-    # ---- materialise sequences -------------------------------------------
-    topc = top.clamp(0, N - 1)
-    head_keys = torch.gather(node_keys, 1, topc[..., None].expand(G, U, nl))
-    cols = min(sub_k_max, max_len)
-    nN = torch.full_like(rep, N)
-    # tail bases: node v at offset o >= 1 contributes its last base; a
-    # sort by (unitig, offset) makes each unitig's chain one ascending run
-    vuid = _gather(uidx_of, torch.where(node_valid, rep, nN))
-    lastb = _kmer_base_dyn(node_keys, sub_k - 1)
-    w = (vuid >= 0) & (off >= 1) & node_valid
-    SHIFT = 1 << 16
-    skey = torch.where(w, vuid, torch.full_like(vuid, U)) * SHIFT + \
-        torch.where(w, off, torch.zeros_like(off))
-    skey_s, lastb_s = psort.bitonic_sort((skey, lastb.to(torch.int64)),
-                                         num_keys=1)
-    seg_start = torch.searchsorted(skey_s.contiguous(),
-                                   (uarange * SHIFT).contiguous())
-    pcol = _arange(max_len, top)[None, None, :]
-    gidx = seg_start[..., None] + pcol - sub_k[:, None, None]
-    ulen_top = _gather(ulen_all, top)
-    head_len = torch.clamp(sub_k, max=max_len)[:, None, None]
-    tail_ok = (pcol >= head_len) & \
-        (pcol < torch.clamp(ulen_top, max=max_len)[..., None]) & \
-        top_ok[..., None]
-    tails = _gather(lastb_s, gidx.clamp(0, N - 1)).to(torch.int8)
-    nfill8 = torch.full_like(tails, dna.N)
-    out = torch.where(tail_ok, tails, nfill8)
-    if cols:
-        prefix = torch.stack([_kmer_base(head_keys, i) for i in range(cols)],
-                             dim=-1)                         # [G, U, cols]
-        colmask = (pcol[..., :cols] < head_len) & top_ok[..., None]
-        out[..., :cols] = torch.where(colmask, prefix, out[..., :cols])
-    lens = _scatter(torch.zeros(G, U + 1, dtype=torch.int64, device=dev),
-                    torch.where(top_ok, uarange, torch.full_like(top, U)),
-                    torch.where(top_ok, torch.clamp(ulen_top, max=max_len),
-                                torch.zeros_like(top)))[:, :U]
+        # ---- materialise sequences ---------------------------------------
+        topc = top.clamp(0, N - 1)
+        head_keys = torch.gather(node_keys, 1,
+                                 topc[..., None].expand(G, U, nl))
+        cols = min(sub_k_max, max_len)
+        nN = torch.full_like(rep, N)
+        # tail bases: node v at offset o >= 1 contributes its last base; a
+        # sort by (unitig, offset) makes each unitig's chain one ascending
+        # run
+        vuid = _gather(uidx_of, torch.where(node_valid, rep, nN))
+        lastb = _kmer_base_dyn(node_keys, sub_k - 1)
+        w = (vuid >= 0) & (off >= 1) & node_valid
+        SHIFT = 1 << 16
+        skey = torch.where(w, vuid, torch.full_like(vuid, U)) * SHIFT + \
+            torch.where(w, off, torch.zeros_like(off))
+        skey_s, lastb_s = psort.bitonic_sort((skey, lastb.to(torch.int64)),
+                                             num_keys=1)
+        seg_start = torch.searchsorted(skey_s.contiguous(),
+                                       (uarange * SHIFT).contiguous())
+        pcol = _arange(max_len, top)[None, None, :]
+        gidx = seg_start[..., None] + pcol - sub_k[:, None, None]
+        ulen_top = _gather(ulen_all, top)
+        head_len = torch.clamp(sub_k, max=max_len)[:, None, None]
+        tail_ok = (pcol >= head_len) & \
+            (pcol < torch.clamp(ulen_top, max=max_len)[..., None]) & \
+            top_ok[..., None]
+        tails = _gather(lastb_s, gidx.clamp(0, N - 1)).to(torch.int8)
+        nfill8 = torch.full_like(tails, dna.N)
+        out = torch.where(tail_ok, tails, nfill8)
+        if cols:
+            prefix = torch.stack(                            # [G, U, cols]
+                [_kmer_base(head_keys, i) for i in range(cols)], dim=-1)
+            colmask = (pcol[..., :cols] < head_len) & top_ok[..., None]
+            out[..., :cols] = torch.where(colmask, prefix, out[..., :cols])
+        lens = _scatter(
+            torch.zeros(G, U + 1, dtype=torch.int64, device=dev),
+            torch.where(top_ok, uarange, torch.full_like(top, U)),
+            torch.where(top_ok, torch.clamp(ulen_top, max=max_len),
+                        torch.zeros_like(top)))[:, :U]
 
-    # ---- revcomp twin dedup ----------------------------------------------
-    rcseq = dna.revcomp_t(out, lens)
-    diff = out != rcseq
-    any_diff = diff.any(-1)
-    lpos = _arange(max_len, out)
-    fd = torch.where(diff, lpos, torch.full_like(lpos, max_len)).min(-1).values
-    fd = torch.where(any_diff, fd, torch.zeros_like(fd))
-    a = torch.gather(out, -1, fd[..., None])[..., 0]
-    bb = torch.gather(rcseq, -1, fd[..., None])[..., 0]
-    # path unitigs keep the lex-smaller strand (their twin is the exact
-    # revcomp); cycle unitigs, whose twin breaks at another rotation,
-    # are each emitted on their canonical strand
-    cyc_head = top_ok & ~_gather(g["is_head"], topc)
-    keep = ~any_diff | (a <= bb) | cyc_head
-    out = torch.where((cyc_head & any_diff & (bb < a))[..., None], rcseq,
-                      out)
-    keep = keep & (lens > 0)
-    order2 = torch.sort((~keep).to(torch.int8), dim=-1, stable=True).indices
-    out = torch.gather(out, 1, order2[..., None].expand(G, U, max_len))
-    lens = torch.where(_gather(keep, order2), _gather(lens, order2),
-                       torch.zeros_like(lens))
-    count = keep.sum(-1)
-    out = torch.where((uarange < count[:, None])[..., None], out,
-                      torch.full_like(out, dna.N))
-    return (out, lens.to(torch.int32), count.to(torch.int32),
-            n_nodes_raw.to(torch.int32), n_edges_raw.to(torch.int32))
+        # ---- revcomp twin dedup ------------------------------------------
+        rcseq = dna.revcomp_t(out, lens)
+        diff = out != rcseq
+        any_diff = diff.any(-1)
+        lpos = _arange(max_len, out)
+        fd = torch.where(diff, lpos,
+                         torch.full_like(lpos, max_len)).min(-1).values
+        fd = torch.where(any_diff, fd, torch.zeros_like(fd))
+        a = torch.gather(out, -1, fd[..., None])[..., 0]
+        bb = torch.gather(rcseq, -1, fd[..., None])[..., 0]
+        # path unitigs keep the lex-smaller strand (their twin is the exact
+        # revcomp); cycle unitigs, whose twin breaks at another rotation,
+        # are each emitted on their canonical strand
+        cyc_head = top_ok & ~_gather(g["is_head"], topc)
+        keep = ~any_diff | (a <= bb) | cyc_head
+        out = torch.where((cyc_head & any_diff & (bb < a))[..., None], rcseq,
+                          out)
+        keep = keep & (lens > 0)
+        order2 = torch.sort((~keep).to(torch.int8), dim=-1,
+                            stable=True).indices
+        out = torch.gather(out, 1, order2[..., None].expand(G, U, max_len))
+        lens = torch.where(_gather(keep, order2), _gather(lens, order2),
+                           torch.zeros_like(lens))
+        count = keep.sum(-1)
+        out = torch.where((uarange < count[:, None])[..., None], out,
+                          torch.full_like(out, dna.N))
+        return (out, lens.to(torch.int32), count.to(torch.int32),
+                n_nodes_raw.to(torch.int32), n_edges_raw.to(torch.int32))
 
 
 def _flat_pad(limbs, nl_pad: int, cap: int):
@@ -452,6 +466,7 @@ def _pad_rows(x, cap: int, fill):
     return torch.cat([x, pad], dim=1)
 
 
+@spanned("dbg.prep")
 def _occurrence_prep(kstrings, n_kstrings, kcounts, *, k: int, sub_k: int,
                      nl_pad: int, occ_cap: int, occn_cap: int,
                      pop_bubbles: int):
@@ -491,6 +506,7 @@ def _lanes_cat(xs):
     return xs[0] if len(xs) == 1 else torch.cat(xs, dim=0)
 
 
+@spanned("dbg.unitigs")
 def assemble_unitigs_multi(kstr_list, nk_list, kcnt_list, *, settings,
                            max_unitigs: int = 64, max_len: int = 1024,
                            min_len: int = 40, pop_bubbles: int = 0,
@@ -567,6 +583,7 @@ def assemble_unitigs(kstrings, n_kstrings, kcounts=None, *, k: int,
     return res if capped else res[:3]
 
 
+@spanned("kmers.unpack")
 def unpack_kmers_to_strings(limbs, k: int):
     """[..., P, nl] packed k-mers -> [..., P, k] int8 codes (FULL -> N)."""
     res = torch.stack([_kmer_base(limbs, i) for i in range(k)], dim=-1)

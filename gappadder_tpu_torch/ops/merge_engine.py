@@ -53,6 +53,7 @@ import numpy as np
 
 from .. import dna, entry_device
 from ..utils import log
+from ..utils.meters import spanned
 from .sw_host import SWParams
 
 MERGE_PARAMS = SWParams(match=1, mismatch=-2, gap_open=2, gap_extend=2)
@@ -356,6 +357,7 @@ def evaluate_pair(s1: np.ndarray, s2: np.ndarray, cfg: MergeConfig,
     return _finish_eval(s1, s2, best, pr, pc, nc, i == 0, j == 0, code)
 
 
+@spanned("assembly.evaluate")
 def evaluate_pairs(pairs_seqs, cfg: MergeConfig, relax: bool = False,
                    device="cuda") -> list[EvalResult]:
     """Batched Evaluate over many (s1, s2) pairs: the WHOLE DP — fill,

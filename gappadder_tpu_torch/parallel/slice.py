@@ -45,6 +45,7 @@ from ..ops.sw_cuda import sw_batch_cuda
 from ..ops.sw_host import BWA_PARAMS
 from ..pipeline.assemble import (FULL, _merge_chunk, _merge_chunk_nocnt,
                                  filter_min_count)
+from ..utils.meters import span, spanned
 from . import dist
 from .mesh import DP, REP, Sharding, as_tensor, place, shard_map
 
@@ -225,6 +226,7 @@ def gather_reads(rowtab, reads_tbl, reads_len):
             torch.where(live, rlen, torch.zeros_like(rlen)))
 
 
+@spanned("kmers.distinct")
 def _distinct_kmers(seq, rlen, k: int, dims: SliceDims,
                     read_chunk: int = 512):
     """Distinct canonical k-mers + counts per local gap. The read axis
@@ -350,20 +352,25 @@ def _step(tid, pos, flag, mapq, mtid, mpos, tlen, lclip, rclip,
                          f"{1 if coll is None else coll.n}")
     me = 0 if coll is None else coll.me
     # ---- block 1: classify my slice of the records ----------------------
-    entries, counts3 = _classify_extract(
-        tid, pos, flag, mapq, mtid, mpos, tlen, lclip, rclip,
-        name_hi, name_lo,
-        wtid, wstart, wend, wgap, wedge, gap_start, gap_end, dims=dims)
+    with span("step.block1"):
+        entries, counts3 = _classify_extract(
+            tid, pos, flag, mapq, mtid, mpos, tlen, lclip, rclip,
+            name_hi, name_lo,
+            wtid, wstart, wend, wgap, wedge, gap_start, gap_end, dims=dims)
     counts = counts3 if coll is None else coll.psum(counts3)
 
     # ---- block 2: route to gap-home shards, dedup/join, group -----------
-    rowtab, hqtab, n_reads, (n_raw_max, n_recv) = _route_and_group(
-        entries, tbl_hi, tbl_lo, tbl_row, tbl_side, dims=dims, coll=coll)
+    with span("step.block2"):
+        rowtab, hqtab, n_reads, (n_raw_max, n_recv) = _route_and_group(
+            entries, tbl_hi, tbl_lo, tbl_row, tbl_side, dims=dims,
+            coll=coll)
 
     # ---- block 3 ---------------------------------------------------------
-    seq, rlen = gather_reads(rowtab, reads_tbl, reads_len)
-    useq, ulen, ucnt, hist, (o_nodes, o_edges, o_nk) = _assemble_block(
-        seq, rlen, dims)
+    with span("step.gather"):
+        seq, rlen = gather_reads(rowtab, reads_tbl, reads_len)
+    with span("step.block3"):
+        useq, ulen, ucnt, hist, (o_nodes, o_edges, o_nk) = _assemble_block(
+            seq, rlen, dims)
     # capacity indicators, maxed over the mesh (see check_overflow): raw
     # node/edge counts, raw per-gap recruit max, distinct-k-mer max, raw
     # router demand
@@ -378,9 +385,10 @@ def _step(tid, pos, flag, mapq, mtid, mpos, tlen, lclip, rclip,
     if coll is not None:
         myg = me + myg * N
     myg = myg.clamp(0, dims.n_gaps - 1)
-    score, qend, tend = _pick_score_block(
-        useq, ulen, flank_l[myg], flank_r[myg], flank_ll[myg],
-        flank_rl[myg])
+    with span("step.block4"):
+        score, qend, tend = _pick_score_block(
+            useq, ulen, flank_l[myg], flank_r[myg], flank_ll[myg],
+            flank_rl[myg])
     return (torch.cat([counts, over]), hist, n_recv[None].to(torch.int32),
             n_reads, rowtab, hqtab, useq, ulen, ucnt, score, qend, tend)
 

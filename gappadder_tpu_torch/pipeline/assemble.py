@@ -36,6 +36,7 @@ from ..config import Config
 from ..ops import dbg, kmers, psort
 from ..parallel import mesh as pmesh
 from ..utils import log
+from ..utils.meters import span
 
 FULL = 0xFFFFFFFF
 # hard memory backstop for the auto-grown distinct-k-mer table
@@ -190,14 +191,15 @@ def gap_distinct_kmers(reads, read_len, n_reads, k: int,
 
 
 def count_gap_kmers(cfg: Config, reads, read_len, n_reads, k: int,
-                    max_distinct: int, device="cuda", mesh=None):
+                    max_distinct: int, device="cuda", mesh=None, sp=None):
     """Distinct-k-mer counting with auto-growing capacity.
 
     When ``cfg.max_distinct_kmers`` is 0 (the default: reference-parity
     unbounded, the reference's assemble_gaps.py:96-102 `kmc -ci0`), a
     saturated table is retried at double capacity until it fits or the
-    memory backstop is hit; a fixed positive config value keeps the
-    given bound but WARNS whenever it truncates.
+    memory backstop is hit, each retry counted on the span `sp`; a
+    fixed positive config value keeps the given bound but WARNS
+    whenever it truncates.
     """
     if mesh is None:
         mesh = pmesh.local_mesh(device)
@@ -216,6 +218,8 @@ def count_gap_kmers(cfg: Config, reads, read_len, n_reads, k: int,
                 "distinct k-mer table saturated at %d for %d gap(s); "
                 "retrying at %d", md, int(sat.sum()), md * 2)
             md *= 2
+            if sp is not None:
+                sp.add(retries=1)
             continue
         log.warn_cap(
             "kmer_table_truncated",
@@ -242,87 +246,92 @@ def assemble_gap_batch(cfg: Config, reads, read_len, n_reads,
     device = entry_device(device, "assemble_gap_batch")
     if mesh is None:
         mesh = pmesh.local_mesh(device)
-    G = reads.shape[0]
-    seqs, lens, counts, names = [], [], [], [[] for _ in range(G)]
-    # distinct-k-mer tables depend only on k: count once per unique k,
-    # not once per (k, sub_k) setting
-    kmer_cache: dict = {}
-    for (k, sub_k) in cfg.kmers:
-        if k not in kmer_cache:
-            kmer_cache[k] = count_gap_kmers(cfg, reads, read_len, n_reads,
-                                            k, max_distinct, device, mesh)
-    for (k, sub_k) in cfg.kmers:
-        kstr, nk, kcnt = kmer_cache[k]
-        md = kstr.shape[1]
-        if cfg.max_contig_len > 0:
-            max_len = cfg.max_contig_len
-        else:
-            max_len = _next_pow2(md + k)
-        mu = max(cfg.max_unitigs, 1)
-        # DBG working-set caps from the OBSERVED distinct counts: start
-        # near the contiguous-region estimate and grow on overflow
-        nk_max = max(int(np.asarray(nk).max(initial=0)), 1)
-        ncap = _next_pow2(2 * nk_max + 4 * k)
-        worst = kstr.shape[1] * 2 * (k - sub_k + 1)
+    with span("assembly.batch") as sp:
+        G = reads.shape[0]
+        sp.add(batches=1, gaps=int(np.count_nonzero(n_reads)))
+        seqs, lens, counts, names = [], [], [], [[] for _ in range(G)]
+        # distinct-k-mer tables depend only on k: count once per unique k,
+        # not once per (k, sub_k) setting
+        kmer_cache: dict = {}
+        for (k, sub_k) in cfg.kmers:
+            if k not in kmer_cache:
+                kmer_cache[k] = count_gap_kmers(cfg, reads, read_len,
+                                                n_reads, k, max_distinct,
+                                                device, mesh, sp)
+        for (k, sub_k) in cfg.kmers:
+            kstr, nk, kcnt = kmer_cache[k]
+            md = kstr.shape[1]
+            if cfg.max_contig_len > 0:
+                max_len = cfg.max_contig_len
+            else:
+                max_len = _next_pow2(md + k)
+            mu = max(cfg.max_unitigs, 1)
+            # DBG working-set caps from the OBSERVED distinct counts: start
+            # near the contiguous-region estimate and grow on overflow
+            nk_max = max(int(np.asarray(nk).max(initial=0)), 1)
+            ncap = _next_pow2(2 * nk_max + 4 * k)
+            worst = kstr.shape[1] * 2 * (k - sub_k + 1)
 
-        def unitigs(ks, n, kc, device, mu, cap):
-            on = [torch.from_numpy(np.ascontiguousarray(x)).to(device)
-                  for x in (ks, n, kc)]
-            with torch.no_grad():
-                res = dbg.assemble_unitigs(
-                    *on, k=k, sub_k=sub_k, max_unitigs=mu, max_len=max_len,
-                    min_len=cfg.min_contig_len,
-                    pop_bubbles=cfg.bubble_pop_rounds, node_cap=cap,
-                    edge_cap=cap)
-            return tuple(x.cpu().numpy() for x in res)
+            def unitigs(ks, n, kc, device, mu, cap):
+                on = [torch.from_numpy(np.ascontiguousarray(x)).to(device)
+                      for x in (ks, n, kc)]
+                with torch.no_grad():
+                    res = dbg.assemble_unitigs(
+                        *on, k=k, sub_k=sub_k, max_unitigs=mu, max_len=max_len,
+                        min_len=cfg.min_contig_len,
+                        pop_bubbles=cfg.bubble_pop_rounds, node_cap=cap,
+                        edge_cap=cap)
+                return tuple(x.cpu().numpy() for x in res)
 
-        while True:
-            useq, ulen, ucnt, n_nodes, n_edges = pmesh.map_blocks(
-                mesh, lambda ks, n, kc, device: unitigs(
-                    ks, n, kc, device, mu, min(ncap, worst)),
-                kstr, nk, kcnt)
-            over = max(int(n_nodes.max()), int(n_edges.max()))
-            if over > min(ncap, worst) and ncap < worst:
+            while True:
+                useq, ulen, ucnt, n_nodes, n_edges = pmesh.map_blocks(
+                    mesh, lambda ks, n, kc, device: unitigs(
+                        ks, n, kc, device, mu, min(ncap, worst)),
+                    kstr, nk, kcnt)
+                over = max(int(n_nodes.max()), int(n_edges.max()))
+                if over > min(ncap, worst) and ncap < worst:
+                    log.warn_cap(
+                        "dbg_node_cap_grow",
+                        "DBG node/edge cap %d overflowed (%d distinct, "
+                        "k=%d); retrying at %d", ncap, over, k, ncap * 2)
+                    ncap *= 2
+                    sp.add(retries=1)
+                    continue
+                if (ucnt >= mu).any() and mu < (1 << 14):
+                    log.warn_cap(
+                        "unitig_slots_grow",
+                        "unitig slots saturated at %d for %d gap(s) "
+                        "(k=%d); retrying at %d", mu, int((ucnt >= mu).sum()),
+                        k, mu * 2)
+                    mu *= 2
+                    sp.add(retries=1)
+                    continue
+                break
+            if cfg.max_contig_len > 0 and (ulen >= max_len).any():
                 log.warn_cap(
-                    "dbg_node_cap_grow",
-                    "DBG node/edge cap %d overflowed (%d distinct, "
-                    "k=%d); retrying at %d", ncap, over, k, ncap * 2)
-                ncap *= 2
-                continue
-            if (ucnt >= mu).any() and mu < (1 << 14):
-                log.warn_cap(
-                    "unitig_slots_grow",
-                    "unitig slots saturated at %d for %d gap(s) "
-                    "(k=%d); retrying at %d", mu, int((ucnt >= mu).sum()),
-                    k, mu * 2)
-                mu *= 2
-                continue
-            break
-        if cfg.max_contig_len > 0 and (ulen >= max_len).any():
-            log.warn_cap(
-                "contig_len_truncated",
-                "max_contig_len=%d truncated %d unitig(s) (k=%d): set "
-                "max_contig_len=0 (auto) for unbounded output",
-                max_len, int((ulen >= max_len).sum()), k)
-        seqs.append(useq)
-        lens.append(ulen)
-        counts.append(ucnt)
+                    "contig_len_truncated",
+                    "max_contig_len=%d truncated %d unitig(s) (k=%d): set "
+                    "max_contig_len=0 (auto) for unbounded output",
+                    max_len, int((ulen >= max_len).sum()), k)
+            seqs.append(useq)
+            lens.append(ulen)
+            counts.append(ucnt)
+            for g in range(G):
+                names[g] += [f"{k}_{sub_k}_{i}" for i in range(int(ucnt[g]))]
+
+        # compact per gap: concatenate settings, packing valid contigs first
+        C = max(sum(s.shape[1] for s in seqs), 1)
+        Lmax = max((s.shape[2] for s in seqs), default=1)
+        out_seq = np.full((G, C, Lmax), dna.N, np.int8)
+        out_len = np.zeros((G, C), np.int32)
+        out_cnt = np.zeros(G, np.int32)
         for g in range(G):
-            names[g] += [f"{k}_{sub_k}_{i}" for i in range(int(ucnt[g]))]
-
-    # compact per gap: concatenate settings, packing valid contigs first
-    C = max(sum(s.shape[1] for s in seqs), 1)
-    Lmax = max((s.shape[2] for s in seqs), default=1)
-    out_seq = np.full((G, C, Lmax), dna.N, np.int8)
-    out_len = np.zeros((G, C), np.int32)
-    out_cnt = np.zeros(G, np.int32)
-    for g in range(G):
-        c = 0
-        for si in range(len(seqs)):
-            n = int(counts[si][g])
-            out_seq[g, c:c + n, :seqs[si].shape[2]] = seqs[si][g, :n]
-            out_len[g, c:c + n] = lens[si][g, :n]
-            c += n
-        out_cnt[g] = c
-    return GapContigs(seq=out_seq, length=out_len, count=out_cnt,
-                      names=names)
+            c = 0
+            for si in range(len(seqs)):
+                n = int(counts[si][g])
+                out_seq[g, c:c + n, :seqs[si].shape[2]] = seqs[si][g, :n]
+                out_len[g, c:c + n] = lens[si][g, :n]
+                c += n
+            out_cnt[g] = c
+        return GapContigs(seq=out_seq, length=out_len, count=out_cnt,
+                          names=names)

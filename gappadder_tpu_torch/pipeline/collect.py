@@ -38,6 +38,7 @@ from ..config import Config
 from ..io import bam as bam_io
 from ..io import fasta, fastq, native
 from ..ops import classify, intervals, recruit
+from ..utils.meters import span
 from .preprocess import gap_ids
 from .workspace import Workspace, config_hash
 
@@ -185,8 +186,10 @@ class _Entries:
 
     def __init__(self):
         self.gap, self.side, self.hash, self.hq = [], [], [], []
+        self.n = 0
 
     def add(self, gap, side, name_hash, hq):
+        self.n += len(gap)
         self.gap.append(gap)
         self.side.append(side)
         self.hash.append(name_hash)
@@ -194,13 +197,14 @@ class _Entries:
 
 
 def _pass1(sub_mat, windows, dims, batch: int, ecap: int, ent: _Entries,
-           mesh):
+           mesh, sp):
     """Pass 1 over the focal candidates (`sub_mat`, int64 [n, 11]) in
     batches of `batch` records (rounded up to a multiple of the mesh's
     shards), in order, each batch split over the mesh's shards.
     Returns the discordant entries' (mate_tid, mate_pos, gap) columns.
     A compaction that overflows on any shard grows the cap of every
-    shard and redoes the batch (one batch is in flight at a time)."""
+    shard and redoes the batch (one batch is in flight at a time),
+    counted as a retry on the span `sp`."""
     from ..parallel import mp
     n_shards = mesh.n_shards
     batch = -(-batch // n_shards) * n_shards
@@ -222,6 +226,7 @@ def _pass1(sub_mat, windows, dims, batch: int, ecap: int, ent: _Entries,
             # the compaction overflowed: grow the cap, redo this batch
             ecap = 1 << (int(nv.max()) - 1).bit_length()
             extract = make_extract_step(dims, mesh, ecap)
+            sp.add(retries=1)
         for sh in range(n_shards):
             cnt = int(nv[sh])
             if cnt == 0:
@@ -257,9 +262,10 @@ def _mate_windows(mt, mp, mg):
 
 
 def _pass2(aln, tid, windows, fan2: int, batch: int, device,
-           ent: _Entries):
+           ent: _Entries, sp):
     """Pass 2 over the mapq-0 records only (the reference skips every
-    record with mapq > 0), in batches of `batch`."""
+    record with mapq > 0), in batches of `batch`; a batch redone at a
+    grown compaction cap is counted as a retry on the span `sp`."""
     ecap = LOWMAPQ_ECAP
     rows0 = np.flatnonzero(np.asarray(aln.mapq) == 0)
     n0 = len(rows0)
@@ -279,6 +285,7 @@ def _pass2(aln, tid, windows, fan2: int, batch: int, device,
         cnt = int(packed[0, 0])
         if cnt > ecap:
             ecap = 1 << (cnt - 1).bit_length()
+            sp.add(retries=1)
             continue                       # redo the batch, bigger cap
         seg = packed[1:1 + cnt]
         seg = seg[seg[:, 2] < hi - lo]     # drop the padding rows
@@ -352,20 +359,21 @@ def collect_library(cfg: Config, lib, gaps: dict[str, np.ndarray],
 
     ent = _Entries()
     with torch.no_grad():
-        win = classify.build_gap_windows(
-            on(gaps["scaffold"].astype(np.int32)), on(gap_start),
-            on(gap_end), dist2, cfg.clip_dist)
-        wcols = {k: v.cpu().numpy() for k, v in win.items()}
-        fanout = min(2 * G if G else 1,
-                     max(4, intervals.max_overlap_np(
-                         wcols["tid"], wcols["start"], wcols["end"])))
-        wsorted = intervals.sort_windows(*(win[k] for k in (
-            "tid", "start", "end", "gap", "edge")))
-        wp = _pad_windows({k: v.cpu().numpy() for k, v in zip(
-            ("tid", "start", "end", "gap", "edge"), wsorted)})
-        windows = tuple(on(wp[k]) for k in ("tid", "start", "end", "gap",
-                                            "edge")) + \
-            (on(gap_start), on(gap_end))
+        with span("collect.windows"):
+            win = classify.build_gap_windows(
+                on(gaps["scaffold"].astype(np.int32)), on(gap_start),
+                on(gap_end), dist2, cfg.clip_dist)
+            wcols = {k: v.cpu().numpy() for k, v in win.items()}
+            fanout = min(2 * G if G else 1,
+                         max(4, intervals.max_overlap_np(
+                             wcols["tid"], wcols["start"], wcols["end"])))
+            wsorted = intervals.sort_windows(*(win[k] for k in (
+                "tid", "start", "end", "gap", "edge")))
+            wp = _pad_windows({k: v.cpu().numpy() for k, v in zip(
+                ("tid", "start", "end", "gap", "edge"), wsorted)})
+            windows = tuple(on(wp[k]) for k in ("tid", "start", "end",
+                                                "gap", "edge")) + \
+                (on(gap_start), on(gap_end))
         dims = SliceDims(
             n_shards=1, n_gaps=max(G, 1), gaps_per_shard=max(G, 1),
             entry_cap=1, reads_per_gap=1, fanout=fanout, dist1=dist1,
@@ -374,28 +382,37 @@ def collect_library(cfg: Config, lib, gaps: dict[str, np.ndarray],
             short_insert=short_insert, lib=0)
 
         # --- pass 1 over the records in some window ----------------------
-        cand = _focal_candidate_rows(tid, np.asarray(aln.pos), wcols["tid"],
-                                     wcols["start"], wcols["end"])
-        sub_mat = np.empty((len(cand), 11), np.int64)
-        for i, x in enumerate((tid, aln.pos, aln.flag, aln.mapq, mtid,
-                               aln.mpos, aln.tlen, aln.lclip, aln.rclip)):
-            sub_mat[:, i] = np.asarray(x, np.int32)[cand]
-        hash_sub = np.asarray(aln.name_hash, np.uint64)[cand]
-        sub_mat[:, 9] = hash_sub >> np.uint64(32)
-        sub_mat[:, 10] = hash_sub & np.uint64(0xFFFFFFFF)
-        B = cfg.tpu.read_batch
-        mt, mp, mg = _pass1(sub_mat, windows, dims, B, initial_ecap, ent,
-                            mesh)
+        with span("collect.pass1") as s:
+            cand = _focal_candidate_rows(tid, np.asarray(aln.pos),
+                                         wcols["tid"], wcols["start"],
+                                         wcols["end"])
+            sub_mat = np.empty((len(cand), 11), np.int64)
+            for i, x in enumerate((tid, aln.pos, aln.flag, aln.mapq, mtid,
+                                   aln.mpos, aln.tlen, aln.lclip,
+                                   aln.rclip)):
+                sub_mat[:, i] = np.asarray(x, np.int32)[cand]
+            hash_sub = np.asarray(aln.name_hash, np.uint64)[cand]
+            sub_mat[:, 9] = hash_sub >> np.uint64(32)
+            sub_mat[:, 10] = hash_sub & np.uint64(0xFFFFFFFF)
+            B = cfg.tpu.read_batch
+            n0 = ent.n
+            mt, mp, mg = _pass1(sub_mat, windows, dims, B, initial_ecap,
+                                ent, mesh, s)
+            s.add(candidates=len(cand), entries=ent.n - n0)
 
         # --- pass 2: mapq-0 reads near the discordant mates --------------
         if len(mt):
-            mw, fan2 = _mate_windows(mt, mp, mg)
-            msorted = intervals.sort_windows(*(on(mw[k]) for k in (
-                "tid", "start", "end", "gap", "mp")))
-            mwp = _pad_windows({k: v.cpu().numpy() for k, v in zip(
-                ("tid", "start", "end", "gap", "mp"), msorted)})
-            _pass2(aln, tid, tuple(on(mwp[k]) for k in (
-                "tid", "start", "end", "gap", "mp")), fan2, B, device, ent)
+            with span("collect.pass2") as s:
+                mw, fan2 = _mate_windows(mt, mp, mg)
+                msorted = intervals.sort_windows(*(on(mw[k]) for k in (
+                    "tid", "start", "end", "gap", "mp")))
+                mwp = _pad_windows({k: v.cpu().numpy() for k, v in zip(
+                    ("tid", "start", "end", "gap", "mp"), msorted)})
+                n0 = ent.n
+                _pass2(aln, tid, tuple(on(mwp[k]) for k in (
+                    "tid", "start", "end", "gap", "mp")), fan2, B, device,
+                    ent, s)
+                s.add(entries=ent.n - n0)
 
     if not ent.gap:
         z = np.zeros(0, np.int32)
@@ -404,10 +421,14 @@ def collect_library(cfg: Config, lib, gaps: dict[str, np.ndarray],
     side_a = np.concatenate(ent.side).astype(np.int64)
     hash_a = np.concatenate(ent.hash)
     hq_a = np.concatenate(ent.hq)
-    if use_device_union:
-        return recruit.recruit_on_device(gap_a, side_a, hash_a, hq_a,
-                                         (left, right), device=device)
-    return _host_union(gap_a, side_a, hash_a, hq_a, left, right)
+    with span("collect.union") as s:
+        if use_device_union:
+            rec = recruit.recruit_on_device(gap_a, side_a, hash_a, hq_a,
+                                            (left, right), device=device)
+        else:
+            rec = _host_union(gap_a, side_a, hash_a, hq_a, left, right)
+        s.add(recruits=len(rec["gap"]))
+    return rec
 
 
 def _both_unmapped_rows(aln, left, right):
@@ -448,19 +469,25 @@ def run_collect(cfg: Config, ws: Workspace,
     readsets = []
     map_index = None
     for li, lib in enumerate(cfg.libraries):
-        if lib.bam:
-            # bounded memory: index the FASTQs (hashes and offsets only);
-            # the recruited rows' payloads are read at assembly
-            left = fastq.scan_fastq(lib.left_fq) if lib.left_fq else None
-            right = fastq.scan_fastq(lib.right_fq) if lib.right_fq \
-                else None
-        else:
-            # self-mapping reads every payload: load them
-            left = read_fastq_any(lib.left_fq) if lib.left_fq else None
-            right = read_fastq_any(lib.right_fq) if lib.right_fq else None
+        with span("collect.fastq_scan") as s:
+            if lib.bam:
+                # bounded memory: index the FASTQs (hashes and offsets
+                # only); the recruited rows' payloads are read at assembly
+                left = fastq.scan_fastq(lib.left_fq) if lib.left_fq \
+                    else None
+                right = fastq.scan_fastq(lib.right_fq) if lib.right_fq \
+                    else None
+            else:
+                # self-mapping reads every payload: load them
+                left = read_fastq_any(lib.left_fq) if lib.left_fq else None
+                right = read_fastq_any(lib.right_fq) if lib.right_fq \
+                    else None
+            s.add(reads=sum(rs.n for rs in (left, right) if rs is not None))
         readsets.append((left, right))
         if lib.bam:
-            aln = read_bam_any(lib.bam)
+            with span("collect.bam_decode") as s:
+                aln = read_bam_any(lib.bam)
+                s.add(records=len(aln.flag))
         else:
             # self-mapping mode: no BAM, the reads are placed on the
             # draft by the minimizer mapper
@@ -479,7 +506,9 @@ def run_collect(cfg: Config, ws: Workspace,
         for k in ("gap", "side", "row", "hq"):
             all_cols[k].append(rec[k])
         all_cols["lib"].append(np.full(len(rec["gap"]), li, np.int32))
-        for side, row in zip(*_both_unmapped_rows(aln, left, right)):
+        with span("collect.both_unmapped"):
+            bu_sides, bu_rows = _both_unmapped_rows(aln, left, right)
+        for side, row in zip(bu_sides, bu_rows):
             bu_cols["lib"].append(np.full(len(row), li, np.int32))
             bu_cols["side"].append(side)
             bu_cols["row"].append(row)
@@ -488,11 +517,13 @@ def run_collect(cfg: Config, ws: Workspace,
            for k, v in all_cols.items()}
     order = np.lexsort((rec["row"], rec["side"], rec["lib"], rec["gap"]))
     rec = {k: v[order] for k, v in rec.items()}
-    ws.save_arrays("recruits", **rec)
-    bu = {k: (np.concatenate(v) if v else np.zeros(0, np.int32))
-          for k, v in bu_cols.items()}
-    ws.save_arrays("both_unmapped", **bu)
-    ws.mark_done("collect", config_hash(cfg), num_recruits=int(len(rec["gap"])))
+    with span("collect.save"):
+        ws.save_arrays("recruits", **rec)
+        bu = {k: (np.concatenate(v) if v else np.zeros(0, np.int32))
+              for k, v in bu_cols.items()}
+        ws.save_arrays("both_unmapped", **bu)
+        ws.mark_done("collect", config_hash(cfg),
+                     num_recruits=int(len(rec["gap"])))
 
     from ..parallel import mp
     if write_parity_files and mp.is_primary():
@@ -510,42 +541,47 @@ def _write_gap_fastqs(cfg, ws, gaps, rec, readsets, subdir="merged/gap_reads",
     (lib, side) at a time when it loads, else the Python writer writes
     record by record."""
     folder = ws.path(subdir)
-    os.makedirs(folder, exist_ok=True)
-    ids = gap_ids(gaps)
-    sel = rec["hq"] if hq_only else np.ones(len(rec["gap"]), bool)
-    # records are lexsorted by (gap, lib, side, row): one searchsorted
-    # pair a gap
-    gap_all = rec["gap"]
-    use_native = native.available()
-    for g in np.unique(gap_all[sel]):
-        fpath = os.path.join(folder, f"{ids[g]}.fastq")
-        lo = np.searchsorted(gap_all, g, side="left")
-        hi = np.searchsorted(gap_all, g, side="right")
-        m = slice(lo, hi) if not hq_only else np.flatnonzero(
-            sel[lo:hi]) + lo
-        libs, sides, rows = rec["lib"][m], rec["side"][m], rec["row"][m]
-        if use_native:
-            open(fpath, "w").close()
-            i = 0
-            while i < len(rows):
-                j = i
-                while (j < len(rows) and libs[j] == libs[i]
-                       and sides[j] == sides[i]):
-                    j += 1
-                rs = readsets[libs[i]][sides[i]]
-                rows_w = rows[i:j]
-                if isinstance(rs, fastq.LazyReadSet):
-                    rs = rs.materialize(rows_w)
-                    rows_w = np.arange(j - i)
-                ok = native.write_fastq_native(
-                    fpath, rs, rows_w,
-                    suffix="_1" if sides[i] == 0 else "_2", append=True)
-                if not ok:
-                    raise IOError(f"native FASTQ write failed: {fpath}")
-                i = j
-            continue
-        with open(fpath, "w") as fh:
-            for li, side, row in zip(libs, sides, rows):
-                rs = readsets[li][side]
-                fastq.write_fastq(fh, rs, [row],
-                                  suffix="_1" if side == 0 else "_2")
+    with span("collect.gap_fastqs") as s:
+        os.makedirs(folder, exist_ok=True)
+        ids = gap_ids(gaps)
+        written = []
+        sel = rec["hq"] if hq_only else np.ones(len(rec["gap"]), bool)
+        # records are lexsorted by (gap, lib, side, row): one searchsorted
+        # pair a gap
+        gap_all = rec["gap"]
+        use_native = native.available()
+        for g in np.unique(gap_all[sel]):
+            fpath = os.path.join(folder, f"{ids[g]}.fastq")
+            lo = np.searchsorted(gap_all, g, side="left")
+            hi = np.searchsorted(gap_all, g, side="right")
+            m = slice(lo, hi) if not hq_only else np.flatnonzero(
+                sel[lo:hi]) + lo
+            written.append(fpath)
+            libs, sides, rows = rec["lib"][m], rec["side"][m], rec["row"][m]
+            if use_native:
+                open(fpath, "w").close()
+                i = 0
+                while i < len(rows):
+                    j = i
+                    while (j < len(rows) and libs[j] == libs[i]
+                           and sides[j] == sides[i]):
+                        j += 1
+                    rs = readsets[libs[i]][sides[i]]
+                    rows_w = rows[i:j]
+                    if isinstance(rs, fastq.LazyReadSet):
+                        rs = rs.materialize(rows_w)
+                        rows_w = np.arange(j - i)
+                    ok = native.write_fastq_native(
+                        fpath, rs, rows_w,
+                        suffix="_1" if sides[i] == 0 else "_2", append=True)
+                    if not ok:
+                        raise IOError(f"native FASTQ write failed: {fpath}")
+                    i = j
+                continue
+            with open(fpath, "w") as fh:
+                for li, side, row in zip(libs, sides, rows):
+                    rs = readsets[li][side]
+                    fastq.write_fastq(fh, rs, [row],
+                                      suffix="_1" if side == 0 else "_2")
+        s.add(files=len(written),
+              bytes=sum(map(os.path.getsize, written)))

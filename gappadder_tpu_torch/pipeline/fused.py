@@ -35,6 +35,7 @@ from ..parallel.mesh import DP, REP, Sharding, local_mesh, place, shard_map
 from ..parallel.slice import (SliceDims, _assemble_block, _group_rows,
                               gather_reads)
 from ..utils import log
+from ..utils.meters import span
 from . import assemble
 
 
@@ -136,119 +137,125 @@ def assemble_batch(cfg: Config, batch, per_gap, readsets, R: int, L: int,
         raise ValueError(f"assemble_batch: {Gb} gap slots do not split "
                          f"over {N} shards")
     Gl = Gb // N
-    # compact read store + dense entries: gap -> batch slot (slot i
-    # lives on shard i % N at local slot i // N), row -> store
-    eg, er, reads_tbl, reads_len = _compact_store(
-        batch, per_gap, readsets, R, L)
-    E = max(len(eg), N)
-    E = 1 << (E - 1).bit_length()
-    E = -(-E // N) * N
-    egap = np.full(E, -1, np.int32)
-    erow = np.zeros(E, np.int32)
-    ehq = np.zeros(E, np.int32)
-    egap[:len(eg)] = eg
-    erow[:len(er)] = er
-    inputs = [place(x, Sharding(mesh, s)) for x, s in zip(
-        (egap, erow, ehq, reads_tbl, reads_len), ASSEMBLE_IN_SPECS)]
+    with span("assembly.batch") as sp:
+        sp.add(batches=1, gaps=sum(g >= 0 for g in batch))
+        # compact read store + dense entries: gap -> batch slot (slot i
+        # lives on shard i % N at local slot i // N), row -> store
+        eg, er, reads_tbl, reads_len = _compact_store(
+            batch, per_gap, readsets, R, L)
+        E = max(len(eg), N)
+        E = 1 << (E - 1).bit_length()
+        E = -(-E // N) * N
+        egap = np.full(E, -1, np.int32)
+        erow = np.zeros(E, np.int32)
+        ehq = np.zeros(E, np.int32)
+        egap[:len(eg)] = eg
+        erow[:len(er)] = er
+        inputs = [place(x, Sharding(mesh, s)) for x, s in zip(
+            (egap, erow, ehq, reads_tbl, reads_len), ASSEMBLE_IN_SPECS)]
 
-    kmax = max(k for k, _ in cfg.kmers)
-    mu = max(cfg.max_unitigs, 1)
-    md = (max_distinct if cfg.max_distinct_kmers == 0
-          else cfg.max_distinct_kmers)
-    auto_md = cfg.max_distinct_kmers == 0
-    ncap_override = 0          # 0 = SliceDims auto formula
-    Lc_override = 0            # 0 = auto (tight start, grow on demand)
-    warned_trunc = False
-    while True:
-        if cfg.max_contig_len > 0:
-            Lc = cfg.max_contig_len
-        else:
-            # tight start: unitigs are usually region-sized, far below
-            # the md + k worst case; the o_ulen indicator grows the cap
-            Lc = max(512, assemble._next_pow2(md // 4 + kmax),
-                     Lc_override)
-        dims = SliceDims(
-            n_shards=N, n_gaps=Gb, gaps_per_shard=Gl, entry_cap=E,
-            reads_per_gap=max(R, 1), kset=tuple(cfg.kmers),
-            max_distinct=md, node_cap=ncap_override,
-            max_unitigs=mu, max_contig_len=Lc,
-            min_contig_len=cfg.min_contig_len,
-            min_kmer_count=cfg.min_kmer_count,
-            pop_bubbles=cfg.bubble_pop_rounds,
-            fixed_kmer_cap=cfg.max_distinct_kmers != 0)
-        over, meta, useq = make_assemble_step(mesh, dims)(*inputs)
-        o_nodes, o_edges, _nraw, o_nk, _nrecv, o_ucnt, o_ulen = (
-            int(x) for x in mp.to_np(over))
-        if o_nk >= md:
-            if auto_md and md < assemble.MAX_AUTO_DISTINCT:
-                log.warn_cap(
-                    "kmer_table_grow",
-                    "fused: distinct k-mer table saturated at %d; "
-                    "retrying at %d", md, md * 2)
-                md *= 2
-                ncap_override = 0
-                continue
-            if not warned_trunc:
-                warned_trunc = True
-                log.warn_cap(
-                    "kmer_table_truncated",
-                    "distinct k-mer table CAP %d truncating "
-                    "(lexicographically-largest k-mers dropped) — raise "
-                    "max_distinct_kmers or set it to 0 (auto)", md)
-        ncap = (ncap_override or
-                min(dims.effective_node_cap(k) for k, _ in cfg.kmers))
-        if max(o_nodes, o_edges) > ncap:
-            grown = 1 << max(o_nodes, o_edges).bit_length()
-            log.warn_cap("dbg_node_cap_grow",
-                         "fused: DBG node/edge cap %d overflowed (%d); "
-                         "retrying at %d", ncap, max(o_nodes, o_edges),
-                         grown)
-            ncap_override = grown
-            continue
-        if o_ucnt >= mu and mu < (1 << 14):
-            log.warn_cap("unitig_slots_grow",
-                         "fused: unitig slots saturated at %d; retrying "
-                         "at %d", mu, mu * 2)
-            mu *= 2
-            continue
-        if o_ulen >= Lc:
+        kmax = max(k for k, _ in cfg.kmers)
+        mu = max(cfg.max_unitigs, 1)
+        md = (max_distinct if cfg.max_distinct_kmers == 0
+              else cfg.max_distinct_kmers)
+        auto_md = cfg.max_distinct_kmers == 0
+        ncap_override = 0          # 0 = SliceDims auto formula
+        Lc_override = 0            # 0 = auto (tight start, grow on demand)
+        warned_trunc = False
+        while True:
             if cfg.max_contig_len > 0:
-                log.warn_cap(
-                    "contig_len_truncated",
-                    "max_contig_len=%d truncated unitig(s): set "
-                    "max_contig_len=0 (auto) for unbounded output", Lc)
+                Lc = cfg.max_contig_len
             else:
-                log.warn_cap(
-                    "contig_len_grow",
-                    "fused: contig-length cap %d saturated; retrying at "
-                    "%d", Lc, Lc * 2)
-                Lc_override = Lc * 2
+                # tight start: unitigs are usually region-sized, far below
+                # the md + k worst case; the o_ulen indicator grows the cap
+                Lc = max(512, assemble._next_pow2(md // 4 + kmax),
+                         Lc_override)
+            dims = SliceDims(
+                n_shards=N, n_gaps=Gb, gaps_per_shard=Gl, entry_cap=E,
+                reads_per_gap=max(R, 1), kset=tuple(cfg.kmers),
+                max_distinct=md, node_cap=ncap_override,
+                max_unitigs=mu, max_contig_len=Lc,
+                min_contig_len=cfg.min_contig_len,
+                min_kmer_count=cfg.min_kmer_count,
+                pop_bubbles=cfg.bubble_pop_rounds,
+                fixed_kmer_cap=cfg.max_distinct_kmers != 0)
+            over, meta, useq = make_assemble_step(mesh, dims)(*inputs)
+            o_nodes, o_edges, _nraw, o_nk, _nrecv, o_ucnt, o_ulen = (
+                int(x) for x in mp.to_np(over))
+            if o_nk >= md:
+                if auto_md and md < assemble.MAX_AUTO_DISTINCT:
+                    log.warn_cap(
+                        "kmer_table_grow",
+                        "fused: distinct k-mer table saturated at %d; "
+                        "retrying at %d", md, md * 2)
+                    md *= 2
+                    ncap_override = 0
+                    sp.add(retries=1)
+                    continue
+                if not warned_trunc:
+                    warned_trunc = True
+                    log.warn_cap(
+                        "kmer_table_truncated",
+                        "distinct k-mer table CAP %d truncating "
+                        "(lexicographically-largest k-mers dropped) — raise "
+                        "max_distinct_kmers or set it to 0 (auto)", md)
+            ncap = (ncap_override or
+                    min(dims.effective_node_cap(k) for k, _ in cfg.kmers))
+            if max(o_nodes, o_edges) > ncap:
+                grown = 1 << max(o_nodes, o_edges).bit_length()
+                log.warn_cap("dbg_node_cap_grow",
+                             "fused: DBG node/edge cap %d overflowed (%d); "
+                             "retrying at %d", ncap, max(o_nodes, o_edges),
+                             grown)
+                ncap_override = grown
+                sp.add(retries=1)
                 continue
-        break
+            if o_ucnt >= mu and mu < (1 << 14):
+                log.warn_cap("unitig_slots_grow",
+                             "fused: unitig slots saturated at %d; retrying "
+                             "at %d", mu, mu * 2)
+                mu *= 2
+                sp.add(retries=1)
+                continue
+            if o_ulen >= Lc:
+                if cfg.max_contig_len > 0:
+                    log.warn_cap(
+                        "contig_len_truncated",
+                        "max_contig_len=%d truncated unitig(s): set "
+                        "max_contig_len=0 (auto) for unbounded output", Lc)
+                else:
+                    log.warn_cap(
+                        "contig_len_grow",
+                        "fused: contig-length cap %d saturated; retrying at "
+                        "%d", Lc, Lc * 2)
+                    Lc_override = Lc * 2
+                    sp.add(retries=1)
+                    continue
+            break
 
-    # ---- reassemble the batch order + compact + name -----------------------
-    meta = mp.to_np(meta)
-    useq = mp.to_np(useq)
-    S = len(cfg.kmers)
-    C = S * mu
-    ulen = meta[:, 1:1 + C]
-    ucnt = meta[:, 1 + C:1 + C + S]     # [Gb, S] per-setting counts
-    out_seq = np.full((Gb, C, useq.shape[2]), dna.N, np.int8)
-    out_len = np.zeros((Gb, C), np.int32)
-    out_cnt = np.zeros(Gb, np.int32)
-    names: list[list[str]] = [[] for _ in range(Gb)]
-    for i in range(Gb):
-        # batch slot i lives on shard i % N, local slot i // N; the
-        # per-shard outputs are shard-major: row (i % N) * Gl + i // N
-        r = (i % N) * Gl + i // N
-        c = 0
-        for si, (k, sub_k) in enumerate(cfg.kmers):
-            n = int(ucnt[r, si])
-            blk = slice(si * mu, si * mu + n)
-            out_seq[i, c:c + n] = useq[r, blk]
-            out_len[i, c:c + n] = ulen[r, blk]
-            names[i] += [f"{k}_{sub_k}_{j}" for j in range(n)]
-            c += n
-        out_cnt[i] = c
-    return assemble.GapContigs(seq=out_seq, length=out_len,
-                               count=out_cnt, names=names)
+        # ---- reassemble the batch order + compact + name ---------------
+        meta = mp.to_np(meta)
+        useq = mp.to_np(useq)
+        S = len(cfg.kmers)
+        C = S * mu
+        ulen = meta[:, 1:1 + C]
+        ucnt = meta[:, 1 + C:1 + C + S]     # [Gb, S] per-setting counts
+        out_seq = np.full((Gb, C, useq.shape[2]), dna.N, np.int8)
+        out_len = np.zeros((Gb, C), np.int32)
+        out_cnt = np.zeros(Gb, np.int32)
+        names: list[list[str]] = [[] for _ in range(Gb)]
+        for i in range(Gb):
+            # batch slot i lives on shard i % N, local slot i // N; the
+            # per-shard outputs are shard-major: row (i % N) * Gl + i // N
+            r = (i % N) * Gl + i // N
+            c = 0
+            for si, (k, sub_k) in enumerate(cfg.kmers):
+                n = int(ucnt[r, si])
+                blk = slice(si * mu, si * mu + n)
+                out_seq[i, c:c + n] = useq[r, blk]
+                out_len[i, c:c + n] = ulen[r, blk]
+                names[i] += [f"{k}_{sub_k}_{j}" for j in range(n)]
+                c += n
+            out_cnt[i] = c
+        return assemble.GapContigs(seq=out_seq, length=out_len,
+                                   count=out_cnt, names=names)

@@ -30,6 +30,7 @@ from .. import dna, entry_device
 from ..config import Config
 from ..ops import seedmatch
 from ..ops.sw_host import BWA_PARAMS
+from ..utils.meters import spanned
 
 SEED_K = 19
 MIN_VOTES = 2
@@ -126,6 +127,7 @@ def _on(x, device):
     return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
 
+@spanned("assembly.rescue")
 def rescue_both_unmapped(cfg: Config, ws, readsets, contig_store,
                          open_gaps: list[int], device="cuda"):
     """Returns extra per-gap read entries {gap: [(lib, side, row)]}."""
@@ -219,6 +221,7 @@ def rescue_both_unmapped(cfg: Config, ws, readsets, contig_store,
     return extra
 
 
+@spanned("assembly.hq")
 def hq_pseudo_contigs(cfg: Config, gap: int, contig_store, readsets,
                       hq_entries: list[tuple[int, int, int]], device="cuda"):
     """Reads clipped on >=2 contigs of this gap -> pseudo-contig codes."""

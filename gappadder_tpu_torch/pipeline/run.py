@@ -37,6 +37,7 @@ from ..io import fasta, fastq
 from ..ops import merge_engine
 from ..parallel.mesh import local_mesh, make_mesh_if_configured
 from ..utils import log
+from ..utils.meters import spanned
 from . import assemble, fused, pick, rescue
 from .preprocess import gap_ids
 from .workspace import Workspace, config_hash
@@ -44,6 +45,7 @@ from .workspace import Workspace, config_hash
 MERGE_SKIP_BASES = 1 << 20   # MergeContigs.py:79-83 skips merging >1MB sets
 
 
+@spanned("assembly.refine")
 def refine_contigs_multi(items, mcfg: merge_engine.MergeConfig,
                          device="cuda"):
     """Batched per-gap dedup -> overlap merge -> dedup
@@ -258,6 +260,7 @@ def _assemble_gaps(cfg, gap_list, per_gap, readsets, L, contig_store, mcfg,
         contig_store[g] = _tuple_from_list(clist, cnames)
 
 
+@spanned("assembly.pick")
 def _pick_gaps(cfg, gaps, gap_list, contig_store, fills, exts, min_score,
                allow_extension, device="cuda"):
     """Pick the gaps of `gap_list` that have contigs and no fill yet, in

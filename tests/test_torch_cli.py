@@ -119,9 +119,11 @@ def test_cli_evaluate_hits_the_gap(both_clis):
     work = base / "port" / "work"
     assert (work / "hit_list.txt").read_text().split() == ["0_1"]
     assert len((work / "closed_gap_length.txt").read_text().split()) == 1
+    # metrics.json holds the last call's spans: -c Evaluate's
     stats = json.load(open(work / "metrics.json"))
-    assert {"preprocess", "collect", "assembly", "patch",
-            "evaluate"} <= set(stats["stages"])
+    assert {"cli.read_draft", "evaluate"} <= set(stats["stages"])
+    assert not {"preprocess", "collect", "assembly",
+                "patch"} & set(stats["stages"])
 
 
 def test_cli_clean_removes_the_workspace(both_clis, tmp_path):

@@ -10,6 +10,7 @@ they also run where only the port's dependencies are installed:
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -353,6 +354,31 @@ def test_cli_on_card_matches_cpu(cuda, tmp_path):
     assert printed["cuda"] == printed["cpu"]
     hits = open(tmp_path / "card" / "hit_list.txt").read().split()
     assert len(hits) == 4
+
+
+@pytest.mark.gpu
+def test_cli_stages_record_device_memory(cuda, tmp_path):
+    """On the card each CLI stage records in metrics.json the device's
+    allocated bytes at its end and the process's peak so far, which
+    the CLI never resets: a peak reached before the call shows."""
+    import json
+    from gappadder_tpu_torch import cli
+    from gappadder_tpu_torch.testcases import collect_scenario, config_dict
+    cfg, _ = collect_scenario(
+        str(tmp_path), 3, n_scaffolds=2, scaffold_len=12_000,
+        gaps_per_scaffold=2, libraries=((300, 50, 100, 8.0),), n_open=0)
+    path = str(tmp_path / "config.json")
+    with open(path, "w") as fh:
+        json.dump(config_dict(cfg), fh)
+    big = torch.empty(1 << 28, dtype=torch.uint8, device=cuda)
+    del big
+    for command in ("Preprocess", "Collect"):
+        assert cli.main(["-c", command, "-g", path]) == 0
+    with open(os.path.join(cfg.workdir, "metrics.json")) as fh:
+        stage = json.load(fh)["stages"]["collect"]
+    assert stage["device_peak_bytes"] >= 1 << 28
+    assert 0 <= stage["device_bytes"] <= stage["device_peak_bytes"]
+    assert stage["device_peak_bytes"] <= torch.cuda.max_memory_allocated()
 
 
 def _same_and_counted(key, kernel, plain):
