@@ -506,7 +506,6 @@ def _lanes_cat(xs):
     return xs[0] if len(xs) == 1 else torch.cat(xs, dim=0)
 
 
-@spanned("dbg.unitigs")
 def assemble_unitigs_multi(kstr_list, nk_list, kcnt_list, *, settings,
                            max_unitigs: int = 64, max_len: int = 1024,
                            min_len: int = 40, pop_bubbles: int = 0,
@@ -520,9 +519,10 @@ def assemble_unitigs_multi(kstr_list, nk_list, kcnt_list, *, settings,
     uniform caps. Settings group by occurrence rows 2 M_s (k_s - sub_k_s),
     so a (k, k-1) setting is not padded to a (k, k-3) one's rows; each
     group is one batch through `_core_lane`, its keys padded to the
-    group's widest limb count. Returns, per setting, (useq int8
-    [G, U, max_len], ulen int32 [G, U], count int32 [G], n_nodes_raw,
-    n_edges_raw int32 [G])."""
+    group's widest limb count. The span `dbg.unitigs` counts the
+    settings, the groups (`_core_lane` batches) and the lanes.
+    Returns, per setting, (useq int8 [G, U, max_len], ulen int32
+    [G, U], count int32 [G], n_nodes_raw, n_edges_raw int32 [G])."""
     G = kstr_list[0].shape[0]
     dev = kstr_list[0].device
     groups: dict[int, list[int]] = {}
@@ -530,30 +530,33 @@ def assemble_unitigs_multi(kstr_list, nk_list, kcnt_list, *, settings,
         groups.setdefault(2 * kstr_list[i].shape[1] * (k - sk),
                           []).append(i)
     results: list = [None] * len(settings)
-    for occ_cap, idxs in sorted(groups.items()):
-        sub_set = [settings[i][1] for i in idxs]
-        nl_pad = max(kmers.num_limbs(sk + 1) for sk in sub_set)
-        occn_cap = max(2 * kstr_list[i].shape[1]
-                       * (settings[i][0] - settings[i][1] + 1)
-                       for i in idxs)
-        preps = [_occurrence_prep(
-            kstr_list[i], nk_list[i],
-            None if kcnt_list is None else kcnt_list[i],
-            k=settings[i][0], sub_k=settings[i][1], nl_pad=nl_pad,
-            occ_cap=occ_cap, occn_cap=occn_cap, pop_bubbles=pop_bubbles)
-            for i in idxs]
-        cov = None if pop_bubbles == 0 else tuple(
-            _lanes_cat([p[1][j] for p in preps]) for j in range(3))
-        sub_k = _lanes_cat([torch.full((G,), sk, dtype=torch.int64,
-                                       device=dev) for sk in sub_set])
-        out = _core_lane(_lanes_cat([p[0] for p in preps]), sub_k, cov,
-                         sub_k_max=max(sub_set), max_unitigs=max_unitigs,
-                         max_len=max_len, min_len=min_len,
-                         pop_bubbles=pop_bubbles,
-                         max_bubble_len=max_bubble_len, node_cap=node_cap,
-                         edge_cap=edge_cap)
-        for j, i in enumerate(idxs):
-            results[i] = tuple(x[j * G:(j + 1) * G] for x in out)
+    with span("dbg.unitigs") as sp:
+        sp.add(settings=len(settings), groups=len(groups),
+               lanes=len(settings) * G)
+        for occ_cap, idxs in sorted(groups.items()):
+            sub_set = [settings[i][1] for i in idxs]
+            nl_pad = max(kmers.num_limbs(sk + 1) for sk in sub_set)
+            occn_cap = max(2 * kstr_list[i].shape[1]
+                           * (settings[i][0] - settings[i][1] + 1)
+                           for i in idxs)
+            preps = [_occurrence_prep(
+                kstr_list[i], nk_list[i],
+                None if kcnt_list is None else kcnt_list[i],
+                k=settings[i][0], sub_k=settings[i][1], nl_pad=nl_pad,
+                occ_cap=occ_cap, occn_cap=occn_cap, pop_bubbles=pop_bubbles)
+                for i in idxs]
+            cov = None if pop_bubbles == 0 else tuple(
+                _lanes_cat([p[1][j] for p in preps]) for j in range(3))
+            sub_k = _lanes_cat([torch.full((G,), sk, dtype=torch.int64,
+                                           device=dev) for sk in sub_set])
+            out = _core_lane(_lanes_cat([p[0] for p in preps]), sub_k, cov,
+                             sub_k_max=max(sub_set), max_unitigs=max_unitigs,
+                             max_len=max_len, min_len=min_len,
+                             pop_bubbles=pop_bubbles,
+                             max_bubble_len=max_bubble_len, node_cap=node_cap,
+                             edge_cap=edge_cap)
+            for j, i in enumerate(idxs):
+                results[i] = tuple(x[j * G:(j + 1) * G] for x in out)
     return results
 
 

@@ -255,7 +255,10 @@ def _distinct_kmers(seq, rlen, k: int, dims: SliceDims,
 
 
 def _assemble_block(seq, rlen, dims: SliceDims):
-    """All (k, sub_k) settings over the local gap batch.
+    """All (k, sub_k) settings over the local gap batch: the k-mer count
+    once a unique k, then one `dbg.assemble_unitigs_multi` call a
+    distinct node/edge cap (auto caps can differ between k at a
+    power-of-two boundary), its results put back in kset order.
 
     Returns (useq int8 [Gl, S*mu, Lc], ulen [Gl, S*mu], ucnt [Gl, S],
     hist [HIST_BUCKETS] of setting 0's k, (max raw nodes, max raw
@@ -263,8 +266,7 @@ def _assemble_block(seq, rlen, dims: SliceDims):
     s's unitig i."""
     dev = seq.device
     mu, Lc = dims.max_unitigs, dims.max_contig_len
-    z = torch.zeros((), dtype=torch.int32, device=dev)
-    over_nodes, over_edges, over_nk = z, z, z
+    over_nk = torch.zeros((), dtype=torch.int32, device=dev)
     hist = torch.zeros(HIST_BUCKETS, dtype=torch.int32, device=dev)
     # the distinct-k-mer table depends only on k: once per unique k
     kcache: dict = {}
@@ -278,21 +280,25 @@ def _assemble_block(seq, rlen, dims: SliceDims):
                 0, torch.where(distinct, h, torch.zeros_like(h)).reshape(-1),
                 distinct.reshape(-1).to(torch.int32))
         over_nk = torch.maximum(over_nk, nk.max())
-    useqs, ulens, ucnts = [], [], []
-    for k, sub_k in dims.kset:
-        us, ul, uc, nn_raw, ne_raw = dbg.assemble_unitigs(
-            kcache[k][1], kcache[k][2], kcache[k][3], k=k, sub_k=sub_k,
-            max_unitigs=mu, max_len=Lc, min_len=dims.min_contig_len,
-            pop_bubbles=dims.pop_bubbles,
-            node_cap=dims.effective_node_cap(k),
-            edge_cap=dims.effective_node_cap(k))
-        useqs.append(us)
-        ulens.append(ul)
-        ucnts.append(uc)
-        over_nodes = torch.maximum(over_nodes, nn_raw.max())
-        over_edges = torch.maximum(over_edges, ne_raw.max())
-    return (torch.cat(useqs, dim=1), torch.cat(ulens, dim=1),
-            torch.stack(ucnts, dim=1), hist,
+    by_cap: dict[int, list[int]] = {}
+    for si, (k, _sub_k) in enumerate(dims.kset):
+        by_cap.setdefault(dims.effective_node_cap(k), []).append(si)
+    res: list = [None] * len(dims.kset)
+    for cap, idxs in by_cap.items():
+        ks = [dims.kset[i][0] for i in idxs]
+        out = dbg.assemble_unitigs_multi(
+            [kcache[k][1] for k in ks], [kcache[k][2] for k in ks],
+            [kcache[k][3] for k in ks],
+            settings=tuple(dims.kset[i] for i in idxs), max_unitigs=mu,
+            max_len=Lc, min_len=dims.min_contig_len,
+            pop_bubbles=dims.pop_bubbles, node_cap=cap, edge_cap=cap)
+        for i, r in zip(idxs, out):
+            res[i] = r
+    us, ul, uc, nn_raw, ne_raw = zip(*res)
+    over_nodes = torch.cat(nn_raw).max()
+    over_edges = torch.cat(ne_raw).max()
+    return (torch.cat(us, dim=1), torch.cat(ul, dim=1),
+            torch.stack(uc, dim=1), hist,
             (over_nodes, over_edges, over_nk))
 
 

@@ -93,6 +93,28 @@ def test_toy_step_on_card_matches_cpu(cuda):
         np.testing.assert_array_equal(a, b)
 
 
+# the six (k, sub_k) of GAPPadder's configuration.json
+KSET6 = ((30, 29), (30, 27), (40, 39), (40, 37), (50, 49), (50, 47))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("caps", [{}, dict(node_cap=0, max_distinct=448)],
+                         ids=["uniform", "auto"])
+def test_six_setting_step_on_card_matches_cpu(cuda, caps):
+    """Block 3 batches the six settings into one DBG call a node cap
+    (one with the scenario's cap, two under auto caps): every output of
+    the step on the card equals the CPU step's."""
+    dims, args = sl.example_data(1, gaps_per_shard=2, read_len=100, step=8,
+                                 flank_len=300, gap_len=160, kset=KSET6)
+    dims = dataclasses.replace(dims, **caps)
+    gpu = [o.cpu().numpy() for o in sl.run_step(dims, args, device=cuda)]
+    cpu = [o.numpy() for o in sl.run_step(dims, args, device="cpu")]
+    for a, b in zip(gpu, cpu):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    assert cpu[8].sum() > 0
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", list(SORT_CASES))
 def test_sort_kernel_matches_plain(cuda, case):

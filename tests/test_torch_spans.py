@@ -76,11 +76,22 @@ def test_step_spans_nest_as_the_layers(six_settings):
     for part in ("dbg.prep", "dbg.graph", "dbg.chains", "dbg.emit"):
         assert up[part] == {"dbg.unitigs"}, part
     names = [n for _s, _e, n in spans]
-    # one distinct-k-mer merge a unique k, one DBG a setting
+    # one distinct-k-mer merge a unique k; one batched DBG a step, one
+    # graph build an occurrence-row group ((k, k - 1) and (k, k - 3))
     assert names.count("kmers.distinct") == 3
-    assert names.count("dbg.unitigs") == 6
+    assert names.count("dbg.unitigs") == 1
+    assert names.count("dbg.graph") == 2
     # a step enters few spans: their cost off is a few microseconds
     assert len(spans) <= 64
+
+
+def test_step_meters_count_the_dbg_settings_groups_and_lanes(six_settings):
+    dims, args = six_settings
+    with meters.Meters() as m:
+        sl.run_step(dims, args, device="cpu")
+    rec = m.stages["dbg.unitigs"]
+    assert (rec["settings"], rec["groups"], rec["lanes"]) == \
+        (6, 2, 6 * dims.gaps_per_shard)
 
 
 def test_step_opens_no_range_without_a_profiler(six_settings, monkeypatch):
