@@ -30,7 +30,7 @@ from .. import dna, entry_device
 from ..config import Config
 from ..ops import seedmatch
 from ..ops.sw_host import BWA_PARAMS
-from ..utils.meters import spanned
+from ..utils.meters import span
 
 SEED_K = 19
 MIN_VOTES = 2
@@ -127,11 +127,18 @@ def _on(x, device):
     return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
 
-@spanned("assembly.rescue")
 def rescue_both_unmapped(cfg: Config, ws, readsets, contig_store,
                          open_gaps: list[int], device="cuda"):
-    """Returns extra per-gap read entries {gap: [(lib, side, row)]}."""
+    """Returns extra per-gap read entries {gap: [(lib, side, row)]}.
+    Its span `assembly.rescue` counts the both-unmapped `reads` matched,
+    the `contigs` indexed, the `candidates` past the vote, those
+    `verified`, and the entries `recruited` (mates included)."""
     device = entry_device(device, "rescue_both_unmapped")
+    with span("assembly.rescue") as sp:
+        return _rescue(ws, readsets, contig_store, open_gaps, device, sp)
+
+
+def _rescue(ws, readsets, contig_store, open_gaps, device, sp):
     if not ws.has_arrays("both_unmapped") or not open_gaps:
         return {}
     bu = ws.load_arrays("both_unmapped")
@@ -161,6 +168,7 @@ def rescue_both_unmapped(cfg: Config, ws, readsets, contig_store,
     rseq, rlens = _gather_reads(entries, readsets)
     if rseq.shape[1] < SEED_K:
         return {}
+    sp.add(reads=len(entries), contigs=len(contigs))
     extra: dict[int, list] = {}
     B = 4096
     mate_hits: dict[tuple[int, int], set[int]] = {}
@@ -174,6 +182,7 @@ def rescue_both_unmapped(cfg: Config, ws, readsets, contig_store,
         pairs = seedmatch.vote_pairs(votes, MIN_VOTES, diag_votes=diags)
         verified = _verify_hits(rseq[lo:hi], rlens[lo:hi], pairs,
                                 carr, clens, device=device)
+        sp.add(candidates=len(pairs), verified=len(verified))
         for (r, s, c, score, _cl) in verified:
             li, side, row = entries[lo + r]
             g = int(owners[c])
@@ -218,14 +227,22 @@ def rescue_both_unmapped(cfg: Config, ws, readsets, contig_store,
             if mkey not in added:
                 added.add(mkey)
                 extra.setdefault(g, []).append((li, 1 - side, mrow))
+    sp.add(recruited=len(added))
     return extra
 
 
-@spanned("assembly.hq")
 def hq_pseudo_contigs(cfg: Config, gap: int, contig_store, readsets,
                       hq_entries: list[tuple[int, int, int]], device="cuda"):
-    """Reads clipped on >=2 contigs of this gap -> pseudo-contig codes."""
+    """Reads clipped on >=2 contigs of this gap -> pseudo-contig codes.
+    Its span `assembly.hq` counts the HQ `reads` matched, the
+    `candidates` past the vote and the `pseudo`-contigs made."""
     device = entry_device(device, "hq_pseudo_contigs")
+    with span("assembly.hq") as sp:
+        return _hq_pseudo(gap, contig_store, readsets, hq_entries, device,
+                          sp)
+
+
+def _hq_pseudo(gap, contig_store, readsets, hq_entries, device, sp):
     s, l, n, _ = contig_store[gap]
     if n == 0 or not hq_entries:
         return []
@@ -238,10 +255,12 @@ def hq_pseudo_contigs(cfg: Config, gap: int, contig_store, readsets,
     rseq, rlens = _gather_reads(hq_entries, readsets)
     if rseq.shape[0] == 0 or rseq.shape[1] < SEED_K:
         return []
+    sp.add(reads=len(hq_entries))
     votes, diags = seedmatch.match_candidates(
         _on(rseq, device), _on(rlens, device), index["limbs"],
         index["contig"], k=SEED_K, index_pos=index["pos"])
     pairs = seedmatch.vote_pairs(votes, MIN_VOTES, diag_votes=diags)
+    sp.add(candidates=len(pairs))
     verified = _verify_hits(rseq, rlens, pairs, carr, clens, device=device)
     per_read: dict[int, set[int]] = {}
     for (r, s_, c, score, clipped) in verified:
@@ -251,4 +270,5 @@ def hq_pseudo_contigs(cfg: Config, gap: int, contig_store, readsets,
     for r, cset in sorted(per_read.items()):
         if len(cset) >= 2:
             out.append(rseq[r][:int(rlens[r])].copy())
+    sp.add(pseudo=len(out))
     return out

@@ -11,6 +11,12 @@ the Assembly batches over the shards of a mesh.
   final:   HQ clip-read pseudo-contigs appended + re-merge, then the
            relaxed full pick (threshold 15) and the extension fallback.
 
+The three parts run inside the spans `assembly.round1`, `.round2` and
+`.final`; each counts the `gaps` it works on and the fills it adds
+(`filled`), round 2 also the gaps rescue gave reads (`rescued`), final
+also the gaps HQ gave pseudo-contigs (`hq_gaps`) and the extensions
+(`extended`).
+
 Every device stage (the Assembly batches, the dedup and overlap SW
 screens, the Evaluate DP, the seed index and join, the rescue SW, the
 pick passes) runs on `device`: the card unless the caller asks for
@@ -37,7 +43,7 @@ from ..io import fasta, fastq
 from ..ops import merge_engine
 from ..parallel.mesh import local_mesh, make_mesh_if_configured
 from ..utils import log
-from ..utils.meters import spanned
+from ..utils.meters import span, spanned
 from . import assemble, fused, pick, rescue
 from .preprocess import gap_ids
 from .workspace import Workspace, config_hash
@@ -348,66 +354,79 @@ def run_assembly_and_pick(cfg: Config, ws: Workspace, rec=None,
     minfo: dict[int, list[str]] = {}
     mesh = make_mesh_if_configured(cfg, device)
 
+    # each round's span counts the gaps it works on and the fills it adds
     # ---- round 1 --------------------------------------------------------
-    _assemble_gaps(cfg, active, per_gap, readsets, L, contig_store, mcfg,
-                   minfo=minfo, device=device, mesh=mesh)
-    _pick_gaps(cfg, gaps, active, contig_store, fills, exts,
-               cfg.pick_min_score_round1, allow_extension=False,
-               device=device)
+    with span("assembly.round1") as s:
+        _assemble_gaps(cfg, active, per_gap, readsets, L, contig_store,
+                       mcfg, minfo=minfo, device=device, mesh=mesh)
+        _pick_gaps(cfg, gaps, active, contig_store, fills, exts,
+                   cfg.pick_min_score_round1, allow_extension=False,
+                   device=device)
+        s.add(gaps=len(active), filled=len(fills))
 
     # ---- rescue + round 2 ----------------------------------------------
     open_gaps = [g for g in active if g not in fills]
-    if open_gaps:
-        extra = rescue.rescue_both_unmapped(cfg, ws, readsets,
-                                            contig_store, open_gaps,
-                                            device=device)
-        round2 = [g for g in open_gaps if extra.get(g)]
-        for g in round2:
-            seen = set(per_gap[g])
-            per_gap[g] += [e for e in extra[g] if e not in seen]
-        if round2:
-            _assemble_gaps(cfg, round2, per_gap, readsets, L,
-                           contig_store, mcfg, minfo=minfo, device=device,
-                           mesh=mesh)
-            _pick_gaps(cfg, gaps, round2, contig_store, fills, exts,
-                       cfg.pick_min_score_round1, allow_extension=False,
-                       device=device)
+    with span("assembly.round2") as s:
+        filled, round2 = len(fills), []
+        if open_gaps:
+            extra = rescue.rescue_both_unmapped(cfg, ws, readsets,
+                                                contig_store, open_gaps,
+                                                device=device)
+            round2 = [g for g in open_gaps if extra.get(g)]
+            for g in round2:
+                seen = set(per_gap[g])
+                per_gap[g] += [e for e in extra[g] if e not in seen]
+            if round2:
+                _assemble_gaps(cfg, round2, per_gap, readsets, L,
+                               contig_store, mcfg, minfo=minfo,
+                               device=device, mesh=mesh)
+                _pick_gaps(cfg, gaps, round2, contig_store, fills, exts,
+                           cfg.pick_min_score_round1,
+                           allow_extension=False, device=device)
+        s.add(gaps=len(open_gaps), rescued=len(round2),
+              filled=len(fills) - filled)
 
     # ---- HQ clip pseudo-contigs + final relaxed pick --------------------
     open_gaps = [g for g in active if g not in fills]
-    hq_per_gap: dict[int, list] = {}
-    for g, side, li, row, hq in zip(rec["gap"], rec["side"], rec["lib"],
-                                    rec["row"], rec["hq"]):
-        if hq and int(g) in set(open_gaps):
-            hq_per_gap.setdefault(int(g), []).append(
-                (int(li), int(side), int(row)))
-    hq_gaps, hq_items = [], []
-    for g in open_gaps:
-        if g not in contig_store:
-            continue
-        pseudo = rescue.hq_pseudo_contigs(cfg, g, contig_store, readsets,
-                                          hq_per_gap.get(g, []),
-                                          device=device)
-        if not pseudo:
-            continue
-        s, l, n, nm = contig_store[g]
-        clist = [np.asarray(s[i][:int(l[i])]) for i in range(n)] + pseudo
-        names = nm + [f"hqread_{i}" for i in range(len(pseudo))]
-        hq_gaps.append(g)
-        hq_items.append((clist, names))
-    for g, (clist, names, ilines) in zip(
-            hq_gaps, refine_contigs_multi(hq_items, mcfg, device)
-            if hq_items else []):
-        if ilines is not None:
-            if ilines:
-                minfo[g] = ilines    # last merge run wins, like the
-                #                      binary overwriting its -o file
-            else:
-                minfo.pop(g, None)
-        contig_store[g] = _tuple_from_list(clist, names)
-    _pick_gaps(cfg, gaps, open_gaps, contig_store, fills, exts,
-               cfg.pick_min_score_final, allow_extension=True,
-               device=device)
+    with span("assembly.final") as s:
+        filled = len(fills)
+        hq_per_gap: dict[int, list] = {}
+        for g, side, li, row, hq in zip(rec["gap"], rec["side"],
+                                        rec["lib"], rec["row"], rec["hq"]):
+            if hq and int(g) in set(open_gaps):
+                hq_per_gap.setdefault(int(g), []).append(
+                    (int(li), int(side), int(row)))
+        hq_gaps, hq_items = [], []
+        for g in open_gaps:
+            if g not in contig_store:
+                continue
+            pseudo = rescue.hq_pseudo_contigs(cfg, g, contig_store,
+                                              readsets,
+                                              hq_per_gap.get(g, []),
+                                              device=device)
+            if not pseudo:
+                continue
+            cs, cl, n, nm = contig_store[g]
+            clist = [np.asarray(cs[i][:int(cl[i])]) for i in range(n)] + \
+                pseudo
+            names = nm + [f"hqread_{i}" for i in range(len(pseudo))]
+            hq_gaps.append(g)
+            hq_items.append((clist, names))
+        for g, (clist, names, ilines) in zip(
+                hq_gaps, refine_contigs_multi(hq_items, mcfg, device)
+                if hq_items else []):
+            if ilines is not None:
+                if ilines:
+                    minfo[g] = ilines    # last merge run wins, like the
+                    #                      binary overwriting its -o file
+                else:
+                    minfo.pop(g, None)
+            contig_store[g] = _tuple_from_list(clist, names)
+        _pick_gaps(cfg, gaps, open_gaps, contig_store, fills, exts,
+                   cfg.pick_min_score_final, allow_extension=True,
+                   device=device)
+        s.add(gaps=len(open_gaps), filled=len(fills) - filled,
+              hq_gaps=len(hq_gaps), extended=len(exts))
 
     _write_picked(cfg, ws, gaps, fills, exts, contig_store)
     _write_merge_info(ws, gaps, minfo)

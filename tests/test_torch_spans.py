@@ -213,3 +213,18 @@ def test_assembly_driver_spans(tmp_path):
                  "kmers.distinct", "kmers.unpack", "dbg.unitigs",
                  "dbg.prep", "dbg.graph", "dbg.chains", "dbg.emit"):
         assert st[name]["seconds"] > 0, name
+    # the three rounds: the gaps each works on, the fills each adds
+    r1, r2, final = (st[f"assembly.{r}"] for r in ("round1", "round2",
+                                                   "final"))
+    assert r1["gaps"] == 3
+    assert r2["gaps"] == r1["gaps"] - r1["filled"]
+    assert final["gaps"] == r2["gaps"] - r2["filled"]
+    assert r1["filled"] + r2["filled"] + final["filled"] == len(fills)
+    # rescue closes what round 1 could not
+    assert r2["rescued"] >= 1 and r2["filled"] >= 1
+    assert final["hq_gaps"] <= final["gaps"]
+    assert final["extended"] <= final["gaps"]
+    assert st["assembly.rescue"]["reads"] > 0
+    assert st["assembly.rescue"]["recruited"] > 0
+    assert st["assembly.rescue"]["verified"] <= \
+        st["assembly.rescue"]["candidates"]
