@@ -100,6 +100,8 @@ PRODUCTION = dict(gaps_per_shard=64, read_len=100, step=4, flank_len=300,
 # E to the right and the F below), E 2, F 2, substitution 2, diag + s 1,
 # three maxes (diag vs E, vs F, vs 0)
 SW_OPS_PER_CELL = 11
+# csrc/evaluate.cu: int32 operations a live cell (its header counts them)
+EVAL_OPS_PER_CELL = 12
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 N_WINDOWS, STEPS_PER_WINDOW = 5, 5
 # the probe kernels on the probes path, by launch counter: the name in
@@ -326,7 +328,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from gappadder_tpu_torch.config import Config
     from gappadder_tpu_torch.ops import cuda_build, dbg, psort, sw_cuda
-    from gappadder_tpu_torch.ops import sw_host
+    from gappadder_tpu_torch.ops import evaluate_dp, sw_host
     from gappadder_tpu_torch.ops import swutil
     from gappadder_tpu_torch.ops.sw_host import BWA_PARAMS, SWParams
     from gappadder_tpu_torch.parallel import slice as sl
@@ -342,13 +344,13 @@ def main() -> int:
 
     def reset_counts():
         """Every kernel's launch count to 0, just before a path runs."""
-        sw_cuda.launches = psort.launches = 0
+        sw_cuda.launches = psort.launches = evaluate_dp.launches = 0
         for k in probes.launches:
             probes.launches[k] = 0
 
     def read_counts() -> dict:
         return {"sw": sw_cuda.launches, "sort": psort.launches,
-                **probes.launches}
+                "evaluate_dp": evaluate_dp.launches, **probes.launches}
 
     dev = torch.device("cuda", 0)
     card = smi("name,power.limit")
@@ -1021,6 +1023,7 @@ class DriverClock:
         self.rescued: dict = {}
         self.sw_calls: list = []
         self.sorts: dict = {}
+        self.eval_calls: list = []
 
     def add(self, key, n):
         self.counts[key] = self.counts.get(key, 0) + n
@@ -1114,6 +1117,16 @@ class DriverClock:
                                   end_slack))
             return sw_inner(q, qlen, t, tlen, params, mode, end_slack)
         stack.enter_context(patched(swutil, "sw_batch_cuda", sw_record))
+
+        from gappadder_tpu_torch.ops import evaluate_dp
+        eval_inner = evaluate_dp.eval_pairs_device
+
+        def eval_record(pairs_seqs, max_clip, *a, **kw):
+            self.eval_calls.append((self.stack[-1], [
+                (np.array(x), np.array(y)) for x, y in pairs_seqs], max_clip))
+            return eval_inner(pairs_seqs, max_clip, *a, **kw)
+        stack.enter_context(patched(evaluate_dp, "eval_pairs_device",
+                                    eval_record))
 
         sort_inner = psort.bitonic_sort
 
@@ -1267,6 +1280,7 @@ def driver_phase(pargs, rowtab, dev, ops_s, reset_counts,
                                  f"{clock.closed_by}")
 
     sw_keys, held_sw, held_sort = hold_driver_calls(clock, dev)
+    evaluate = evaluate_driver_calls(clock, dev, launches["evaluate_dp"])
     if not any(qs[1] > sw_cuda.STRIP_ROWS for _, qs, _, _, _ in sw_keys):
         raise AssertionError("the driver made no SW call with Lq > 1024")
     check.update(n_gaps=len(glens), filled=len(fills), extended=len(exts),
@@ -1275,7 +1289,8 @@ def driver_phase(pargs, rowtab, dev, ops_s, reset_counts,
                  rescued_reads={str(g): n for g, n in clock.rescued.items()},
                  closed_by=clock.closed_by,
                  sw_shapes_equal_plain=held_sw,
-                 sort_shapes_equal_plain=held_sort)
+                 sort_shapes_equal_plain=held_sort,
+                 evaluate_calls_equal_plain=len(evaluate["calls"]))
 
     # the SW kernel at the merge's and rescue's shapes; every call by mode
     merge_shapes, by_mode = [], {}
@@ -1320,7 +1335,7 @@ def driver_phase(pargs, rowtab, dev, ops_s, reset_counts,
     return {"check": check, "launches": launches, "total_ms": total_ms,
             "stage_ms": clock.ms, "refine": refine, "counts": clock.counts,
             "sw_by_mode": by_mode, "sw_merge_shapes": merge_shapes,
-            "seedmatch_sorts": seed_sorts}
+            "seedmatch_sorts": seed_sorts, "evaluate": evaluate}
 
 
 def install_collect_clock(clock, stack, ws, collect, preprocess, gapscan,
@@ -1511,6 +1526,7 @@ def chain_phase(dev, reset_counts, read_counts, tmp) -> dict:
                           "rescued": dclock.rescued.get(g, 0),
                           "extended": g in exts} for g in short}
     sw_keys, held_sw, held_sort = hold_driver_calls(dclock, dev)
+    evaluate = evaluate_driver_calls(dclock, dev, launches["evaluate_dp"])
     held_collect = []
     for (shape, nk, npay), (n, ops) in sorted(collect_sorts.items()):
         check_sort(psort, ops, nk)
@@ -1537,7 +1553,8 @@ def chain_phase(dev, reset_counts, read_counts, tmp) -> dict:
                    for f in DRIVER_FILES + ("filled_scaffolds.fa",)},
         "collect_sort_shapes_equal_plain": held_collect,
         "driver_sw_shapes_equal_plain": held_sw,
-        "driver_sort_shapes_equal_plain": held_sort}
+        "driver_sort_shapes_equal_plain": held_sort,
+        "driver_evaluate_calls_equal_plain": len(evaluate["calls"])}
     timing = {
         "simulate_ms": sim_ms, "ingest_ms": ingest_ms,
         "preprocess_ms": ingest.get("preprocess", 0.0),
@@ -1552,7 +1569,8 @@ def chain_phase(dev, reset_counts, read_counts, tmp) -> dict:
         if pass1_s else None,
         "driver_ms": driver_ms, "driver_stage_ms": dclock.ms,
         "driver_counts": dclock.counts,
-        "patch_ms": patch_ms, "collect_sorts": sort_rows}
+        "patch_ms": patch_ms, "collect_sorts": sort_rows,
+        "evaluate": evaluate}
     return {"check": check, "time": timing, "launches": launches,
             "collect_launches": collect_launches, "cfg": cfgs["card"],
             "truth": truth}
@@ -2123,6 +2141,66 @@ def hold_driver_calls(clock, dev):
         check_sort(psort, ops, nk)
         held_sort.append([list(shape), nk, npay, n, sorted(labs)])
     return sw_keys, held_sw, held_sort
+
+
+def evaluate_driver_calls(clock, dev, launched: int) -> dict:
+    """Every Evaluate call a DriverClock recorded, each with pairs one of
+    the `launched` kernel launches (else it raises): the kernel's result
+    held to the plain twin on the card (same pack, same scatter), then
+    timed: `ms` the kernel alone by CUDA events over back-to-back
+    launches on the staged pack, `call_ms` one call of the card path
+    (copy in, launch, readback), `device_ms` the kernel by the
+    profiler, `plain_ms` the plain twin on the card, `bound_ms` the live
+    cells at EVAL_OPS_PER_CELL over the issue rate."""
+    from gappadder_tpu_torch.ops import evaluate_dp
+    from gappadder_tpu_torch.ops.merge_engine import MERGE_PARAMS
+    ops_s = int_ops_per_s(torch.cuda.get_device_properties(dev),
+                          float(smi("clocks.max.sm").split()[0]))
+    kw0 = dict(match=MERGE_PARAMS.match, mismatch=MERGE_PARAMS.mismatch,
+               ind=-MERGE_PARAMS.gap_open)
+    with_pairs = sum(1 for _, pairs, _ in clock.eval_calls if pairs)
+    if launched != with_pairs:
+        raise AssertionError(f"{launched} Evaluate launches for {with_pairs} "
+                             "calls with pairs")
+    rows = []
+    for lab, pairs, max_clip in clock.eval_calls:
+        if not pairs:
+            continue
+        kw = dict(kw0, max_clip=max_clip)
+        pack = evaluate_dp.pack_pairs(pairs)
+        got = evaluate_dp.eval_pack_cuda(pack, dev, **kw)
+        want = evaluate_dp.eval_pack_plain(pack, dev, **kw)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"Evaluate kernel != plain ({lab}, "
+                                 f"{len(pairs)} pairs)")
+        n = pack.meta[:, 1].astype(np.int64)
+        m = pack.meta[:, 3].astype(np.int64)
+        cells = int((n * m).sum())
+        P = len(pairs)
+        dbuf = torch.from_numpy(pack.buffer()).to(dev)
+        out = torch.empty((P, 6), dtype=torch.int32, device=dev)
+        scratch = torch.empty(max(pack.scratch_len, 1), dtype=torch.int32,
+                              device=dev)
+        kernel = lambda: evaluate_dp.launch(dbuf, P, out, scratch, **kw)
+        dev_ms, kernels, _ = kernel_profile(kernel, 5, "evaluate_kernel")
+        t = time.perf_counter()
+        evaluate_dp.eval_pack_plain(pack, dev, **kw)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t) * 1e3
+        rows.append({
+            "stage": lab, "pairs": P, "cells": cells, "max_n": int(n.max()),
+            "max_m": int(m.max()),
+            "strip_pairs": int((n > evaluate_dp.STRIP_ROWS).sum()),
+            "ms": cuda_ms(kernel, 20),
+            "call_ms": cuda_ms(lambda: evaluate_dp.eval_pack_cuda(
+                pack, dev, **kw), 10),
+            "device_ms": dev_ms / kernels if kernels else None,
+            "kernels_seen": kernels, "plain_ms": plain_ms,
+            "bound_ms": cells * EVAL_OPS_PER_CELL / ops_s * 1e3})
+    tot = {k: sum(r[k] for r in rows)
+           for k in ("pairs", "cells", "ms", "call_ms", "plain_ms",
+                     "bound_ms")}
+    return {"calls": rows, "total": tot}
 
 
 def sw_shape_time(sw_cuda, args, params, mode, slack, ops_s,

@@ -1,19 +1,30 @@
 """The ContigsMerger Evaluate overlap DP on the device (counterpart of
-gappadder_tpu/ops/evaluate_dp.py, an XLA function there, torch
-operators here).
+gappadder_tpu/ops/evaluate_dp.py, an XLA `lax.scan` there).
 
-One batch of contig pairs runs the whole evaluation on `device`: the
-matrix fill, the end scan, the winner and the traceback's endpoint
-flags, so the host never needs the matrix. The fill is a loop over the
-query's rows; each row is the JAX `lax.scan` step: the diagonal and up
-moves, then the left move as a running max (`torch.cummax`), and the
-endpoint flags carried through the same pointer preference with a
-running max of source columns and a gather.
+One call evaluates a ragged batch of contig pairs: the matrix fill, the
+end scan, the winner and the traceback's endpoint flags, so the host
+never needs the matrix. `eval_pairs_device` packs the pairs ragged,
+longest first (`pack_pairs`), and
+  * on the card launches the hand-written kernel `csrc/evaluate.cu`
+    once for the whole pack: a warp a pair, a band of query rows a lane
+    held in registers, the columns swept as an anti-diagonal wavefront,
+    queries past 1024 rows in strips; no matrix in device memory. Its
+    bound is int32 issue, about 12 operations a live cell (see the
+    source for the design). It raises rather than fall back;
+  * on the CPU pads the pack into the batches of `eval_batch_kernel`,
+    the plain version: a loop over the query's rows, each row the JAX
+    `lax.scan` step (the diagonal and up moves, the left move as a
+    running max, `torch.cummax`, and the endpoint flags carried through
+    the same pointer preference with a running max of source columns
+    and a gather).
+Both give their results in the pack's order, scattered back to the
+callers'.
 
 Exactness, as in the JAX module:
   * free start on both sequences (H row/col 0 = 0), linear indels,
-    raw character equality (N matches N); the caller pads the query
-    with -1 and the target with -2 so padded cells always mismatch;
+    raw character equality (N matches N); an empty sequence is one
+    sentinel code, and `eval_batch_kernel` pads the query with -1 and
+    the target with -2 so padded cells always mismatch;
   * end scan: for c = 0..max_clip, column m-c is scanned BEFORE row
     n-c, candidates improve only on STRICT >, and within a column or row
     the FIRST maximum (lowest row or column) wins;
@@ -22,6 +33,9 @@ Exactness, as in the JAX module:
 """
 
 from __future__ import annotations
+
+import ctypes
+import dataclasses
 
 import numpy as np
 import torch
@@ -131,28 +145,80 @@ def _bucket(n: int, lo: int) -> int:
     return b
 
 
-# cells a sub-batch may hold: B * (n+1) * (m+1) cells of 5 bytes each
+# cells a CPU sub-batch may hold: B * (n+1) * (m+1) cells of 5 bytes each
 _CELL_BUDGET = 128 << 20
 
+# kernel launches since the last reset (chip_smoke.py reads this)
+launches = 0
 
-def eval_pairs_device(pairs_seqs, max_clip: int, match: int = 1,
-                      mismatch: int = -2, ind: int = -2, device="cuda"):
-    """Run a ragged list of (s1, s2) pairs through eval_batch_kernel on
-    `device` (the card unless the caller asks for "cpu").
+STRIP_ROWS = 1024   # csrc/evaluate.cu sweeps longer queries in strips
+# the codes an empty query or target is packed as: one code that equals
+# no other (eval_batch_kernel's padding sentinels)
+Q_EMPTY, T_EMPTY = -1, -2
 
-    Returns numpy int32 [len(pairs), 6] rows of
-    (best, pos_row, pos_col, nclip, ends_i0, ends_j0). Pairs are grouped
-    into (n, m) shape buckets of powers of two, each bucket split to the
-    cell budget; one batch and one readback per sub-batch."""
-    device = entry_device(device, "eval_pairs_device")
+
+@dataclasses.dataclass
+class Pack:
+    """A ragged batch of pairs in the order they are evaluated, longest
+    first (n * m descending): `order[k]` is the caller's index of packed
+    pair k. `meta` int32 [P, 5] holds each pair's (query offset, n,
+    target offset, m, scratch offset or -1) into `codes` (int8, every
+    pair's query then target) and into the strips' scratch, a row of m
+    int32 for each pair of more than STRIP_ROWS query rows
+    (`scratch_len` in all)."""
+    order: np.ndarray
+    meta: np.ndarray
+    codes: np.ndarray
+    scratch_len: int
+
+    def pair(self, k: int):
+        """Packed pair k's (query, target) codes."""
+        qo, n, to, m, _ = (int(x) for x in self.meta[k])
+        return self.codes[qo:qo + n], self.codes[to:to + m]
+
+    def buffer(self) -> np.ndarray:
+        """The bytes csrc/evaluate.cu reads: `meta`, then `codes`."""
+        return np.concatenate([self.meta.view(np.int8).ravel(), self.codes])
+
+
+def pack_pairs(pairs_seqs) -> Pack:
+    """The ragged pack of (s1, s2) pairs; an empty sequence becomes one
+    sentinel code (Q_EMPTY, T_EMPTY) that matches nothing."""
     P = len(pairs_seqs)
+    seqs = []
+    for a, b in pairs_seqs:
+        seqs.append(np.asarray(a, np.int8) if len(a) else
+                    np.array([Q_EMPTY], np.int8))
+        seqs.append(np.asarray(b, np.int8) if len(b) else
+                    np.array([T_EMPTY], np.int8))
+    lens = np.fromiter((len(x) for x in seqs), np.int64, 2 * P).reshape(P, 2)
+    order = np.argsort(-(lens[:, 0] * lens[:, 1]), kind="stable")
+    lens = lens[order]
+    flat = lens.ravel()
+    offs = np.concatenate([[0], np.cumsum(flat)[:-1]]).reshape(P, 2)
+    strips = lens[:, 0] > STRIP_ROWS
+    s_len = np.where(strips, lens[:, 1], 0)
+    s_off = np.where(strips, np.cumsum(s_len) - s_len, -1)
+    total = int(flat.sum())
+    if total >= 1 << 31 or int(s_len.sum()) >= 1 << 31:
+        raise ValueError("eval_pairs_device: a batch of 2 G codes or more")
+    meta = np.stack([offs[:, 0], lens[:, 0], offs[:, 1], lens[:, 1], s_off],
+                    1).astype(np.int32)
+    codes = np.concatenate([seqs[2 * i + w] for i in order for w in (0, 1)])
+    return Pack(order, meta, codes, int(s_len.sum()))
+
+
+def eval_pack_plain(pack: Pack, device, **kw) -> np.ndarray:
+    """Packed results [P, 6] by eval_batch_kernel on `device` (the CPU):
+    the pack's pairs padded into (n, m) power-of-two buckets, each
+    bucket split to the cell budget."""
+    P = len(pack.order)
     out = np.zeros((P, 6), np.int32)
-    if P == 0:
-        return out
     groups: dict[tuple[int, int], list[int]] = {}
-    for i, (a, b) in enumerate(pairs_seqs):
-        key = (_bucket(max(len(a), 1), 64), _bucket(max(len(b), 1), 64))
-        groups.setdefault(key, []).append(i)
+    for k in range(P):
+        key = (_bucket(int(pack.meta[k, 1]), 64),
+               _bucket(int(pack.meta[k, 3]), 64))
+        groups.setdefault(key, []).append(k)
     for (nb, mb), idxs in sorted(groups.items()):
         cap = max(_CELL_BUDGET // ((nb + 1) * (mb + 1)), 1)
         for lo in range(0, len(idxs), cap):
@@ -162,17 +228,79 @@ def eval_pairs_device(pairs_seqs, max_clip: int, match: int = 1,
             ta = np.full((Bb, mb), -2, np.int32)
             ql = np.ones(Bb, np.int32)
             tl = np.ones(Bb, np.int32)
-            for r, i in enumerate(sub):
-                a, b = pairs_seqs[i]
+            for r, k in enumerate(sub):
+                a, b = pack.pair(k)
                 qa[r, :len(a)] = a
                 ta[r, :len(b)] = b
-                ql[r] = max(len(a), 1)
-                tl[r] = max(len(b), 1)
+                ql[r] = len(a)
+                tl[r] = len(b)
             args = [torch.from_numpy(x).to(device) for x in (qa, ql, ta, tl)]
             with torch.no_grad():
-                res = eval_batch_kernel(*args, max_clip=max_clip, match=match,
-                                        mismatch=mismatch, ind=ind)
-            res = res.cpu().numpy()
-            for r, i in enumerate(sub):
-                out[i] = res[:, r]
+                res = eval_batch_kernel(*args, **kw)
+            out[sub] = res.cpu().numpy().T[:len(sub)]
+    return out
+
+
+def _kernel():
+    """The C entry of csrc/evaluate.cu, built or loaded, its arguments
+    bound."""
+    from . import cuda_build
+    fn = cuda_build.load("evaluate").evaluate_launch
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp] + [ci] * 5 + [vp] * 3
+    fn.restype = ci
+    return fn
+
+
+def eval_pack_cuda(pack: Pack, device, **kw) -> np.ndarray:
+    """Packed results [P, 6] by csrc/evaluate.cu: one copy of the pack
+    to the card, one launch, one readback."""
+    _kernel()  # built before anything reaches the card
+    P = len(pack.order)
+    dbuf = torch.from_numpy(pack.buffer()).to(device)
+    out = torch.empty((P, 6), dtype=torch.int32, device=device)
+    scratch = (torch.empty(pack.scratch_len, dtype=torch.int32, device=device)
+               if pack.scratch_len else None)
+    launch(dbuf, P, out, scratch, **kw)
+    return out.cpu().numpy()
+
+
+def launch(dbuf, P: int, out, scratch, *, max_clip: int, match: int,
+           mismatch: int, ind: int) -> None:
+    """One launch of csrc/evaluate.cu on the current stream: `dbuf` a
+    pack's `buffer()` on the card, `out` int32 [P, 6], `scratch` int32
+    [scratch_len] (None where no pair takes strips)."""
+    global launches
+    fn = _kernel()
+    with torch.cuda.device(dbuf.device):
+        stream = torch.cuda.current_stream(dbuf.device).cuda_stream
+        err = fn(dbuf.data_ptr(), P, max_clip, match, mismatch, ind,
+                 out.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"eval_pairs_device: kernel launch failed "
+                           f"(cudaError {err})")
+    launches += 1
+
+
+def eval_pairs_device(pairs_seqs, max_clip: int, match: int = 1,
+                      mismatch: int = -2, ind: int = -2, device="cuda"):
+    """Evaluate a ragged list of (s1, s2) pairs on `device` (the card
+    unless the caller asks for "cpu").
+
+    Returns numpy int32 [len(pairs), 6] rows of
+    (best, pos_row, pos_col, nclip, ends_i0, ends_j0), in the callers'
+    order. The pairs are packed ragged, longest first (`pack_pairs`); on
+    the card the pack is one launch of csrc/evaluate.cu (or it raises),
+    on the CPU it is padded into eval_batch_kernel's batches. Either way
+    the results come back in the pack's order and are scattered back."""
+    device = entry_device(device, "eval_pairs_device")
+    P = len(pairs_seqs)
+    out = np.zeros((P, 6), np.int32)
+    if P == 0:
+        return out
+    pack = pack_pairs(pairs_seqs)
+    kw = dict(max_clip=max_clip, match=match, mismatch=mismatch, ind=ind)
+    run = eval_pack_cuda if device.type == "cuda" else eval_pack_plain
+    out[pack.order] = run(pack, device, **kw)
     return out

@@ -53,7 +53,7 @@ import numpy as np
 
 from .. import dna, entry_device
 from ..utils import log
-from ..utils.meters import spanned
+from ..utils.meters import span
 from .sw_host import SWParams
 
 MERGE_PARAMS = SWParams(match=1, mismatch=-2, gap_open=2, gap_extend=2)
@@ -357,33 +357,40 @@ def evaluate_pair(s1: np.ndarray, s2: np.ndarray, cfg: MergeConfig,
     return _finish_eval(s1, s2, best, pr, pc, nc, i == 0, j == 0, code)
 
 
-@spanned("assembly.evaluate")
 def evaluate_pairs(pairs_seqs, cfg: MergeConfig, relax: bool = False,
                    device="cuda") -> list[EvalResult]:
     """Batched Evaluate over many (s1, s2) pairs: the WHOLE DP — fill,
-    end scan, winner selection, traceback-endpoint flags — runs in the
-    device kernel (ops/evaluate_dp.py), one dispatch + one small
-    readback per shape bucket; the host only applies the significance
+    end scan, winner selection, traceback-endpoint flags — runs on the
+    device (ops/evaluate_dp.py: on the card one kernel launch and one
+    small readback a call); the host only applies the significance
     code and concatenates the merged string. Bit-identical to
-    evaluate_pair on every pair (tested)."""
+    evaluate_pair on every pair (tested). The `assembly.evaluate` span
+    counts the call's `pairs`, its live `cells` (the sum of n * m) and
+    the kernel's `launches`, host integers all."""
     from . import evaluate_dp
-    res = evaluate_dp.eval_pairs_device(
-        pairs_seqs, cfg.max_clip_len, match=MERGE_PARAMS.match,
-        mismatch=MERGE_PARAMS.mismatch, ind=-MERGE_PARAMS.gap_open,
-        device=device)
-    out: list[EvalResult] = []
-    for (s1, s2), row in zip(pairs_seqs, res):
-        best, pr, pc, nc, ei0, ej0 = (int(x) for x in row)
-        n, m = len(s1), len(s2)
-        code = (OVERLAP_LARGER_MINLEN if relax
-                else _eval_code(n, m, best, pr, pc, nc, cfg))
-        if code == OVERLAP_SMALLER:
-            out.append(EvalResult(code, best, pr, pc, nc, False, False,
-                                  np.zeros(0, np.int8)))
-        else:
-            out.append(_finish_eval(s1, s2, best, pr, pc, nc,
-                                    bool(ei0), bool(ej0), code))
-    return out
+    with span("assembly.evaluate") as sp:
+        before = evaluate_dp.launches
+        res = evaluate_dp.eval_pairs_device(
+            pairs_seqs, cfg.max_clip_len, match=MERGE_PARAMS.match,
+            mismatch=MERGE_PARAMS.mismatch, ind=-MERGE_PARAMS.gap_open,
+            device=device)
+        sp.add(pairs=len(pairs_seqs),
+               cells=sum(max(len(a), 1) * max(len(b), 1)
+                         for a, b in pairs_seqs),
+               launches=evaluate_dp.launches - before)
+        out: list[EvalResult] = []
+        for (s1, s2), row in zip(pairs_seqs, res):
+            best, pr, pc, nc, ei0, ej0 = (int(x) for x in row)
+            n, m = len(s1), len(s2)
+            code = (OVERLAP_LARGER_MINLEN if relax
+                    else _eval_code(n, m, best, pr, pc, nc, cfg))
+            if code == OVERLAP_SMALLER:
+                out.append(EvalResult(code, best, pr, pc, nc, False, False,
+                                      np.zeros(0, np.int8)))
+            else:
+                out.append(_finish_eval(s1, s2, best, pr, pc, nc,
+                                        bool(ei0), bool(ej0), code))
+        return out
 
 
 def merge_info_lines(names: list[str], infos: list[list[int]]):

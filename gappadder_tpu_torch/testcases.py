@@ -310,6 +310,98 @@ def sw_strip_pairs(seed, B=24, Lq=1100, Lt=70):
     return q, ql, t, tl
 
 
+# query rows at the Evaluate kernel's strip edges (strips of 1024 rows)
+EVAL_STRIP_ROWS = (1024, 1025, 2049)
+
+
+def refine_test_items(seed, n_gaps=8, lmin=400, lmax=2600, win=(150, 1300)):
+    """Gaps for the contig refine (`pipeline/run.refine_contigs_multi`):
+    per gap, a truth of lmin..lmax bases cut into windows of `win`
+    bases that overlap by 40-90, some reverse complemented, one with an
+    N run, plus an exact duplicate, a contained piece and an unrelated
+    contig. Returns [(contigs, names)] a gap, the contigs shuffled."""
+    from .dna import revcomp
+    rng = np.random.default_rng(seed)
+    items = []
+    for g in range(n_gaps):
+        L = int(rng.integers(lmin, lmax + 1))
+        truth = rng.integers(0, 4, L).astype(np.int8)
+        contigs, lo = [], 0
+        while lo < L - 100:
+            hi = min(L, lo + int(rng.integers(win[0], win[1] + 1)))
+            contigs.append(truth[lo:hi].copy())
+            lo = hi - int(rng.integers(40, 91))
+        contigs[0][len(contigs[0]) // 2:][:5] = 4
+        contigs = [revcomp(c) if rng.random() < 0.3 else c for c in contigs]
+        contigs.append(contigs[-1].copy())
+        piece = contigs[0][10:10 + max(len(contigs[0]) // 3, 20)].copy()
+        contigs += [piece, rng.integers(0, 4, 300).astype(np.int8)]
+        order = rng.permutation(len(contigs))
+        items.append(([contigs[i] for i in order],
+                      [f"g{g}_c{i}" for i in range(len(contigs))]))
+    return items
+
+
+def evaluate_test_pairs(seed, count=40, lmin=5, lmax=300, long_rows=(),
+                        long_cols=90, tiny=400, log_lengths=False):
+    """Ragged (s1, s2) code pairs for holding Evaluate implementations
+    against each other, shuffled out of length order: `count` random
+    pairs of lmin..lmax bases (uniform, or log-uniform with
+    `log_lengths`; every other one a suffix/prefix overlap,
+    some with an error, some a containment, some with N runs), the tie
+    and edge pairs (lengths 0 and 1, all-N, poly-A, two-letter ACAC...
+    runs, a pair shorter than any clip), `tiny` pairs of 1-10 bases of
+    two or three letters (where the pointer preference and the scan's
+    tie rules decide the winner and its flags), and for each n in
+    `long_rows` a
+    query of n rows against `long_cols` columns: an overlap ending on the
+    last row, and a two-letter pair whose ties straddle the strip
+    edge."""
+    rng = np.random.default_rng(seed)
+
+    def rand(n, k=4):
+        return rng.integers(0, k, n).astype(np.int8)
+
+    empty = np.zeros(0, np.int8)
+    pairs = [(rand(1), rand(1)), (rand(1), rand(40)), (rand(40), rand(1)),
+             (empty, rand(5)), (rand(5), empty), (rand(3), rand(4)),
+             (np.full(30, 4, np.int8), np.full(45, 4, np.int8)),
+             (np.full(20, 4, np.int8), rand(20)),
+             (np.zeros(60, np.int8), np.zeros(25, np.int8)),
+             (np.tile(np.int8([0, 1]), 40), np.tile(np.int8([0, 1]), 33)),
+             (np.tile(np.int8([0, 1]), 35)[1:], np.tile(np.int8([1, 0]), 50))]
+    for i in range(count):
+        if log_lengths:
+            n, m = (int(x) for x in np.exp(rng.uniform(
+                np.log(lmin), np.log(lmax + 1), 2)))
+        else:
+            n, m = (int(x) for x in rng.integers(lmin, lmax + 1, 2))
+        s1, s2 = rand(n), rand(m)
+        if i % 2 == 0 and min(n, m) > 4:
+            k = int(rng.integers(4, min(n, m)))
+            s2[:k] = s1[-k:]
+            if rng.random() < 0.3:
+                s2[int(rng.integers(0, k))] ^= 1
+        elif i % 6 == 1 and m > n + 2:
+            at = int(rng.integers(0, m - n))
+            s2[at:at + n] = s1
+        if i % 7 == 3:
+            s1[-3:] = 4
+            s2[:3] = 4
+        pairs.append((s1, s2))
+    for i in range(tiny):
+        k = 2 + i % 2
+        n, m = (int(x) for x in rng.integers(1, 11, 2))
+        pairs.append((rand(n, k), rand(m, k)))
+    for n in long_rows:
+        s1, s2 = rand(n), rand(long_cols)
+        k = long_cols // 2
+        s2[:k] = s1[-k:]
+        pairs.append((s1, s2))
+        pairs.append((rand(n, 2), rand(long_cols, 2)))
+    return [pairs[i] for i in rng.permutation(len(pairs))]
+
+
 def driver_workspace(root, args, rowtab, hold_back=(), step: int = 4):
     """Write the Assembly+Pick driver's inputs for the scenario of
     `parallel.slice.example_data` into a Workspace at `root`, as Collect

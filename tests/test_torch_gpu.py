@@ -1,5 +1,5 @@
-"""The port's CUDA paths on a card: the SW, sort and probe kernels
-against their plain versions, and the fused step, the Assembly batch,
+"""The port's CUDA paths on a card: the SW, sort, Evaluate and probe
+kernels against their plain versions, the contig refine, and the fused step, the Assembly batch,
 Pick, the Assembly+Pick driver, Preprocess and Collect, the CLI and
 the multi-setting DBG on the card against their CPU runs.
 These
@@ -17,16 +17,19 @@ import pytest
 import torch
 
 from gappadder_tpu_torch import probes
-from gappadder_tpu_torch.ops import dbg, psort, sw_cuda, sw_host
+from gappadder_tpu_torch.ops import (dbg, evaluate_dp, merge_engine, psort,
+                                     sw_cuda, sw_host)
 from gappadder_tpu_torch.parallel import slice as sl
 from gappadder_tpu_torch.probes import int16_repro, swprobe
 from gappadder_tpu_torch.probes import kernel_experiments as ke
 from gappadder_tpu_torch.testcases import (ARGMAX_INPUTS, DBG_MULTI_CASES,
-                                           INT16_LOOP_INPUTS, SORT_CASES,
-                                           SW_EDGE_SHAPES, SW_STRIP_SHAPES,
-                                           SWPROBE_INPUTS, SWPROBE_SHAPES,
-                                           dbg_multi_case, driver_workspace,
-                                           probe_input, sort_case,
+                                           EVAL_STRIP_ROWS, INT16_LOOP_INPUTS,
+                                           SORT_CASES, SW_EDGE_SHAPES,
+                                           SW_STRIP_SHAPES, SWPROBE_INPUTS,
+                                           SWPROBE_SHAPES, dbg_multi_case,
+                                           driver_workspace,
+                                           evaluate_test_pairs, probe_input,
+                                           refine_test_items, sort_case,
                                            sw_edge_pairs, sw_strip_pairs,
                                            sw_test_pairs)
 
@@ -79,6 +82,79 @@ def test_kernel_refuses_wrong_dtype(cuda):
     ln = torch.ones(2, dtype=torch.int32, device=cuda)
     with pytest.raises(TypeError):
         sw_cuda.sw_batch_cuda(q, ln, q, ln)
+
+
+def _evaluate_plain(pairs, device, *sc, max_clip=50):
+    """The plain twin on `device`, through the same pack and scatter."""
+    pack = evaluate_dp.pack_pairs(pairs)
+    out = np.zeros((len(pairs), 6), np.int32)
+    out[pack.order] = evaluate_dp.eval_pack_plain(
+        pack, device, max_clip=max_clip, match=sc[0], mismatch=sc[1],
+        ind=sc[2])
+    return out
+
+
+@pytest.mark.gpu
+def test_evaluate_kernel_matches_plain_on_ragged_pairs(cuda):
+    """2,000 random ragged pairs of 1-3,000 bases (log-uniform lengths,
+    overlaps, containments, N runs) with queries at the strip edges
+    (1024, 1025, 2049 rows), in one launch, against the plain twin on
+    the card."""
+    pairs = evaluate_test_pairs(41, count=2000, lmin=1, lmax=3000,
+                                long_rows=EVAL_STRIP_ROWS, long_cols=300,
+                                tiny=0, log_lengths=True)
+    before = evaluate_dp.launches
+    got = evaluate_dp.eval_pairs_device(pairs, 50, device=cuda)
+    assert evaluate_dp.launches == before + 1
+    np.testing.assert_array_equal(got, _evaluate_plain(pairs, cuda, 1, -2,
+                                                       -2))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("max_clip", [0, 2, 50])
+def test_evaluate_kernel_matches_plain_on_ties(cuda, max_clip):
+    """The tie and edge pairs (lengths 0 and 1, all-N, poly-A, ACAC...,
+    tiny two- and three-letter pairs, lines of index below 0) under
+    three scorings."""
+    pairs = evaluate_test_pairs(50 + max_clip, count=40, lmax=300,
+                                long_rows=EVAL_STRIP_ROWS, long_cols=60)
+    for sc in ((1, -2, -2), (1, -1, -1), (2, -1, -1)):
+        got = evaluate_dp.eval_pairs_device(pairs, max_clip, *sc,
+                                            device=cuda)
+        np.testing.assert_array_equal(
+            got, _evaluate_plain(pairs, "cpu", *sc, max_clip=max_clip))
+
+
+@pytest.mark.gpu
+def test_refine_on_card_matches_cpu(cuda, monkeypatch):
+    """`refine_contigs_multi` on testcases' gaps (windows up to 1,100
+    bases, so some Evaluate queries take two strips): the card's result
+    equals the CPU's, and each `evaluate_pairs` call with pairs is one
+    kernel launch, as its span counts it."""
+    from gappadder_tpu_torch.pipeline import run
+    from gappadder_tpu_torch.utils import meters
+    items = refine_test_items(8, n_gaps=4, lmin=600, lmax=2000,
+                              win=(150, 1100))
+    cfg = merge_engine.MergeConfig()
+    calls = []
+    inner = merge_engine.evaluate_pairs
+
+    def counted(pairs_seqs, *a, **kw):
+        calls.append(len(pairs_seqs))
+        return inner(pairs_seqs, *a, **kw)
+    monkeypatch.setattr(merge_engine, "evaluate_pairs", counted)
+    before = evaluate_dp.launches
+    with meters.Meters() as m:
+        got = run.refine_contigs_multi(items, cfg, device=cuda)
+    launched = evaluate_dp.launches - before
+    assert launched == sum(1 for n in calls if n) >= 1
+    assert m.stages["assembly.evaluate"]["launches"] == launched
+    assert m.stages["assembly.evaluate"]["pairs"] == sum(calls)
+    want = run.refine_contigs_multi(items, cfg, device="cpu")
+    assert evaluate_dp.launches - before == launched
+    for (gc, gn, gi), (wc, wn, wi) in zip(got, want, strict=True):
+        assert [c.tolist() for c in gc] == [c.tolist() for c in wc]
+        assert gn == wn and gi == wi
 
 
 @pytest.mark.gpu

@@ -1,4 +1,5 @@
-"""The CUDA sources of the sort, SW and probe kernels, run on the CPU.
+"""The CUDA sources of the sort, SW, Evaluate and probe kernels, run on
+the CPU.
 
 A card is the only place the kernels run for real (tests/test_torch_gpu.py
 holds them to their plain versions there). This file checks the kernels'
@@ -23,16 +24,17 @@ import pytest
 import torch
 
 from gappadder_tpu_torch import probes
-from gappadder_tpu_torch.ops import cuda_build, psort, sw_cuda
+from gappadder_tpu_torch.ops import cuda_build, evaluate_dp, psort, sw_cuda
 from gappadder_tpu_torch.ops.sw_host import BWA_PARAMS, SWParams
 from gappadder_tpu_torch.probes import int16_repro, swprobe
 from gappadder_tpu_torch.probes import kernel_experiments as ke
-from gappadder_tpu_torch.testcases import (ARGMAX_INPUTS, INT16_LOOP_INPUTS,
-                                           SW_EDGE_SHAPES, SW_STRIP_SHAPES,
-                                           SWPROBE_INPUTS, SWPROBE_SHAPES,
-                                           probe_input, sort_case,
-                                           sw_edge_pairs, sw_strip_pairs,
-                                           sw_test_pairs)
+from gappadder_tpu_torch.testcases import (ARGMAX_INPUTS, EVAL_STRIP_ROWS,
+                                           INT16_LOOP_INPUTS, SW_EDGE_SHAPES,
+                                           SW_STRIP_SHAPES, SWPROBE_INPUTS,
+                                           SWPROBE_SHAPES,
+                                           evaluate_test_pairs, probe_input,
+                                           sort_case, sw_edge_pairs,
+                                           sw_strip_pairs, sw_test_pairs)
 
 EMULATION = r"""
 #pragma once
@@ -419,6 +421,56 @@ def test_emulated_sw_kernel_in_strips(emulated, shape, mode):
     params = BWA_PARAMS if Lq % 2 else SWParams(2, -3, 5, 2)
     for slack in ((2, 1100) if mode == "overlap" else (0,)):
         _check_sw(lib, (q, ql, t, tl), params, mode, slack)
+
+
+def _emulated_evaluate(lib, pairs, max_clip, match=1, mismatch=-2,
+                       ind=-2):
+    """evaluate_dp.eval_pack_cuda's launch, on CPU buffers (the strips'
+    scratch filled with garbage first), scattered back to the pairs'
+    order."""
+    pack = evaluate_dp.pack_pairs(pairs)
+    P = len(pack.order)
+    buf = torch.from_numpy(pack.buffer())
+    out = torch.full((P, 6), -5, dtype=torch.int32)
+    scratch = torch.full((max(pack.scratch_len, 1),), -77, dtype=torch.int32)
+    fn = lib.evaluate_launch
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp] + [ci] * 5 + [vp] * 3
+    fn.restype = ci
+    assert fn(buf.data_ptr(), P, max_clip, match, mismatch, ind,
+              out.data_ptr(), scratch.data_ptr(), None) == 0
+    res = np.zeros((P, 6), np.int32)
+    res[pack.order] = out.numpy()
+    return res
+
+
+@pytest.mark.parametrize("max_clip", [0, 2, 7, 50])
+def test_emulated_evaluate_kernel_matches_plain(emulated, max_clip):
+    """Ragged pairs out of length order: overlaps, containments, N runs,
+    lengths 0 and 1, all-N, poly-A and two-letter ties, tiny pairs of
+    two and three letters, pairs shorter than the clip (lines of index
+    below 0), at bands of 2 to 12 rows a lane, under three scorings
+    (ties between the moves differ in each)."""
+    lib = emulated("evaluate")
+    pairs = evaluate_test_pairs(200 + max_clip, count=24, lmax=330)
+    for sc in ((1, -2, -2), (1, -1, -1), (2, -1, -1)):
+        want = evaluate_dp.eval_pairs_device(pairs, max_clip, *sc,
+                                             device="cpu")
+        np.testing.assert_array_equal(
+            _emulated_evaluate(lib, pairs, max_clip, *sc), want)
+
+
+def test_emulated_evaluate_kernel_in_strips(emulated):
+    """Queries of 1024, 1025 and 2049 rows (one, two and three strips):
+    overlaps ending on the last row and two-letter ties, with candidate
+    rows on both sides of a strip edge, and other scores (5, -3, -4)."""
+    lib = emulated("evaluate")
+    pairs = evaluate_test_pairs(7, count=2, long_rows=EVAL_STRIP_ROWS,
+                                long_cols=40)
+    for clip, sc in ((50, (1, -2, -2)), (3, (5, -3, -4))):
+        want = evaluate_dp.eval_pairs_device(pairs, clip, *sc, device="cpu")
+        np.testing.assert_array_equal(
+            _emulated_evaluate(lib, pairs, clip, *sc), want)
 
 
 def _probe_entry(lib, name, *args, device=0):
