@@ -44,11 +44,11 @@ shapes. Last, the CLI (`cli.main`, in this process) on the same files:
 `-c All` writes the direct calls' workspace, a second `-c All` finds it
 up to date, `-c Evaluate` hits every closable gap with every SW call
 shape it made held to the plain version, `-c Assembly --trace` names
-the kernels in its trace, the non-fused Assembly batch writes the fused
-run's files with every SW and sort call shape held to the plain
+the kernels in its trace, the driver under the recording hooks writes
+the CLI's files with every SW and sort call shape held to the plain
 version, and the tools on the card equal the CPU; the `cli_time` line
-gives the CLI's per-stage seconds, Evaluate's parts and the non-fused
-k-mer merge's sort shapes. The chain's config sets `tpu.mesh_shape` [2],
+gives the CLI's per-stage seconds, Evaluate's parts and the hooked
+driver's stages. The chain's config sets `tpu.mesh_shape` [2],
 which one process on one card runs unsharded. Then the multi-device
 runs: one process with two shards on the card (phase 14: the production
 step through `make_slice_step` over a mesh of two shards of cuda:0 and
@@ -775,10 +775,10 @@ def main() -> int:
         clirun = cli_phase(root, chain, dev, reset_counts, read_counts)
         launches["cli"] = clirun.pop("launches")
         launches["evaluate"] = clirun.pop("evaluate_launches")
-        launches["nonfused"] = clirun.pop("nonfused_launches")
+        launches["hooked"] = clirun.pop("hooked_launches")
         emit(phase="cli", **clirun.pop("check"), launches=launches["cli"],
              evaluate_launches=launches["evaluate"],
-             nonfused_launches=launches["nonfused"])
+             hooked_launches=launches["hooked"])
         emit(phase="cli_time", **clirun, phase_s=time.perf_counter() - t,
              smi=card)
 
@@ -863,15 +863,14 @@ def main() -> int:
         "launches_by_path": {p: v["sort"] for p, v in launches.items()},
         "seedmatch_rows": drv["seedmatch_sorts"],
         "collect_shapes": chain["time"]["collect_sorts"],
-        "nonfused_merge_shapes": clirun["nonfused_merge_sorts"],
         "dbg_multi_shapes": dbgm["batched_sort_shapes"],
         "check": "exact equality with bitonic_sort_plain in every plane, "
                  "on every call shape of the driver, chain and dbg_multi "
                  "paths too; times are the sums over one production "
                  "step's sort calls (sort_time line), the seed matcher's "
                  "rows in the driver_time line, Collect's shapes in the "
-                 "collect_time line, the non-fused k-mer merge's in the "
-                 "cli_time line, the batched DBG's in dbg_multi_shapes"},
+                 "collect_time line, the batched DBG's in "
+                 "dbg_multi_shapes"},
         *probe_rows])
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1615,23 +1614,21 @@ def cli_phase(root, chain, dev, reset_counts, read_counts) -> dict:
     Evaluate's full-DP fallback places a lone flank on a scaffold of
     2^20 bases where the planted bases are (its plain version, one
     tensor step an anti-diagonal, would take 2^20 of them); (d) `-c Assembly --force --trace` names the SW and sort
-    kernels in its trace and writes the same files; (e) the driver with
-    tpu.fused=False, counts reset before and read after, under phase
-    11's recording hooks: every SW and sort call shape equals the plain
-    version, its picked_seqs.fa, _ori.txt and merge_info.txt equal the
-    fused run's, and the k-mer merge's sort shapes are timed; (f)
+    kernels in its trace and writes the same files; (e) the driver,
+    counts reset before and read after, under phase 11's recording
+    hooks: every SW and sort call shape equals the plain version, and
+    its picked_seqs.fa, _ori.txt and merge_info.txt equal the CLI's; (f)
     `refiner.classify_repeat` and `scaffold.build_scaffolds` on round 1's
     contigs of four gaps, on the card, equal the CPU run. Returns the
     cli_time record with "check", "launches", "evaluate_launches" and
-    "nonfused_launches" in it."""
+    "hooked_launches" in it."""
     import io
     import shutil
     from gappadder_tpu_torch import cli, dna
     from gappadder_tpu_torch.io import fasta
     from gappadder_tpu_torch.ops import (merge_engine, minimap, psort,
                                          seedmatch, sw_cuda, swutil)
-    from gappadder_tpu_torch.pipeline import (assemble, fused, rescue,
-                                              run)
+    from gappadder_tpu_torch.pipeline import fused, rescue, run
     from gappadder_tpu_torch.pipeline.preprocess import gap_ids
     from gappadder_tpu_torch.pipeline.workspace import Workspace
     from gappadder_tpu_torch.testcases import config_dict, same_workspace
@@ -1734,40 +1731,26 @@ def cli_phase(root, chain, dev, reset_counts, read_counts) -> dict:
         raise AssertionError(f"the trace names {traced}")
     same_workspace(direct, work, DRIVER_FILES)
 
-    # (e) the non-fused batch under the recording hooks
-    nf_dir = os.path.join(root, "nonfused")
-    shutil.copytree(work, nf_dir)
-    nf_cfg = dataclasses.replace(
-        cfg, working_folder=nf_dir,
-        tpu=dataclasses.replace(cfg.tpu, fused=False))
+    # (e) the driver under the recording hooks
+    hooked_dir = os.path.join(root, "hooked")
+    shutil.copytree(work, hooked_dir)
+    hooked_cfg = dataclasses.replace(cfg, working_folder=hooked_dir)
     clock = DriverClock()
     reset_counts()
     with contextlib.ExitStack() as stack:
         clock.install(stack, run, fused, rescue, seedmatch, merge_engine,
                       swutil, psort)
-        for name, lab in (("assemble_gap_batch", "assembly"),
-                          ("_merge_chunk_impl", "kmer_merge")):
-            stack.enter_context(patched(assemble, name, clock.timed(
-                lambda a, kw, lab=lab: f"round{clock.round}_{lab}",
-                getattr(assemble, name))))
         torch.cuda.synchronize()
         t = time.perf_counter()
         fills, _exts, store = run.run_assembly_and_pick(
-            nf_cfg, Workspace(nf_dir), device=dev)
+            hooked_cfg, Workspace(hooked_dir), device=dev)
         torch.cuda.synchronize()
-        nf_ms = (time.perf_counter() - t) * 1e3
-    nf_launches = read_counts()
-    if min(nf_launches["sw"], nf_launches["sort"]) < 1:
-        raise AssertionError(f"the non-fused driver launched {nf_launches}")
-    same_workspace(nf_dir, work, DRIVER_FILES)
-    merge_calls = {key: [n, ops] for key, (n, labs, ops)
-                   in clock.sorts.items()
-                   if any(x.endswith("kmer_merge") for x in labs)}
-    if not merge_calls:
-        raise AssertionError("the non-fused k-mer merge made no sort call")
-    _sw_keys, held_sw, held_sort = hold_driver_calls(clock, dev)
-    merge_rows = sort_shape_times(psort, merge_calls)
-    del merge_calls, _sw_keys
+        hooked_ms = (time.perf_counter() - t) * 1e3
+    hooked_launches = read_counts()
+    if min(hooked_launches["sw"], hooked_launches["sort"]) < 1:
+        raise AssertionError(f"the hooked driver launched {hooked_launches}")
+    same_workspace(hooked_dir, work, DRIVER_FILES)
+    _, held_sw, held_sort = hold_driver_calls(clock, dev)
 
     # (f) the tools on round 1's contigs of four gaps, card == CPU
     gl = clock.closed_by.get("round1_pick", [])[:4]
@@ -1819,16 +1802,16 @@ def cli_phase(root, chain, dev, reset_counts, read_counts) -> dict:
                      "fallback_placement_2pow20": list(place)},
         "trace": {"kernels": traced,
                   "mb": os.path.getsize(trace_path) / 2 ** 20},
-        "nonfused": {"filled": len(fills), "equal_fused_files": True,
-                     "sw_shapes_equal_plain": held_sw,
-                     "sort_shapes_equal_plain": held_sort},
+        "hooked": {"filled": len(fills), "equal_cli_files": True,
+                   "sw_shapes_equal_plain": held_sw,
+                   "sort_shapes_equal_plain": held_sort},
         "tools": {"gaps": [int(g) for g in gl], "equal_cpu": True,
                   "classes": [r[0] for r in card_tools[0]],
                   "scaffold_records": [r[0] for r in recs],
                   "sw_launches": tool_launches}}
     return {"check": check, "launches": launches,
             "evaluate_launches": ev_launches,
-            "nonfused_launches": nf_launches,
+            "hooked_launches": hooked_launches,
             "all_s": all_s, "stage_s": {k: v["seconds"]
                                         for k, v in all_stages.items()},
             "again_s": again_s, "evaluate_ms": ev_stages["evaluate"]
@@ -1839,8 +1822,7 @@ def cli_phase(root, chain, dev, reset_counts, read_counts) -> dict:
             "fused_driver_ms": {
                 "cli_assembly": all_stages["assembly"]["seconds"] * 1e3,
                 "phase12_hooked": chain["time"]["driver_ms"]},
-            "nonfused_driver_ms": nf_ms, "nonfused_stage_ms": clock.ms,
-            "nonfused_merge_sorts": merge_rows}
+            "hooked_driver_ms": hooked_ms, "hooked_stage_ms": clock.ms}
 
 
 def shards_phase(dev, pdims, pin, res, asm, reset_counts,
@@ -2764,7 +2746,7 @@ def host_parts(ke, ir, probes, dev, calls: int = HOST_PART_CALLS,
     x = torch.from_numpy(ir.script_input()).to(dev)
     out = torch.empty((1, t.shape[1]), dtype=torch.int32, device=dev)
     ke.exp_dynamic_sublane(t, idx)
-    fn = probes._fns["dynamic_sublane"]
+    fn = probes.kernel("dynamic_sublane")
     index = t.get_device()
     raw = torch._C._cuda_getCurrentRawStream
     cargs = [idx.data_ptr(), t.data_ptr(), t.shape[0], t.shape[1],

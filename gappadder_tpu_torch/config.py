@@ -4,13 +4,13 @@ it (counterpart of gappadder_tpu/config.py).
 The same JSON file loads into the same frozen dataclasses, field for
 field, so a configuration written for the JAX package drives the port.
 The `tpu` section is accepted unchanged. Of it `gap_batch` (gaps per
-Assembly batch), `fused` (False: the non-fused Assembly batch, the JAX
-package's host-glued path), `read_batch` (records per classification
-batch) and `mesh_shape` (the shards Collect's classification and the
-Assembly batches split over, when the processes hold that many; see
-parallel/mesh.py) keep their meaning. `use_pallas` means nothing to the
-port, which runs its hand-written kernels; `mesh_axes` names the mesh's
-axes, which the steps flatten into one.
+Assembly batch), `read_batch` (records per classification batch) and
+`mesh_shape` (the shards Collect's classification and the Assembly
+batches split over, when the processes hold that many; see
+parallel/mesh.py) keep their meaning. `use_pallas` and `fused` mean
+nothing to the port, which runs its hand-written kernels and one
+Assembly batch; `mesh_axes` names the mesh's axes, which the steps
+flatten into one.
 """
 
 from __future__ import annotations
@@ -41,9 +41,11 @@ class Library:
 @dataclasses.dataclass(frozen=True)
 class TpuParams:
     """The JAX package's device knobs (no reference equivalent), kept so
-    the same JSON loads. `mesh_shape`, `read_batch`, `gap_batch` and
-    `fused` mean to the port what they mean to the JAX package; the
-    other fields are accepted and ignored."""
+    the same JSON loads. `mesh_shape`, `read_batch` and `gap_batch` mean
+    to the port what they mean to the JAX package; the other fields are
+    accepted and ignored. `fused` among them: the port has one Assembly
+    batch, the fused one, and `"fused": false` writes the same files as
+    the JAX package's non-fused batch."""
     mesh_shape: tuple[int, ...] = (1,)
     mesh_axes: tuple[str, ...] = ("dp",)
     max_gaps: int = 1 << 16          # static bound for jitted gap scan
@@ -73,7 +75,7 @@ class Config:
     discordant_window: tuple[int, int] = (200, 300)  # collect_discordant_low_mapq_reads.py:21-25
     min_contig_len: int = 40         # velvetg -min_contig_lgth 40
     min_kmer_count: int = 0          # kmc -ci equivalent; -1 = adaptive
-                                     # error filter (see assemble.py)
+                                     # error filter (see ops/kmers.py)
     bubble_pop_rounds: int = 0       # coverage-guided DBG bubble popping
                                      # (tour-bus equivalent, ops/dbg.py)
     pick_min_score_round1: int = 30  # assemble_gaps.py:336

@@ -34,13 +34,13 @@ Exactness, as in the JAX module:
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 
 import numpy as np
 import torch
 
 from .. import entry_device
+from . import cuda_build
 
 NEGB = -(1 << 28)
 
@@ -152,6 +152,8 @@ _CELL_BUDGET = 128 << 20
 launches = 0
 
 STRIP_ROWS = 1024   # csrc/evaluate.cu sweeps longer queries in strips
+# evaluate_launch's arguments before the stream (cuda_build.CTYPES codes)
+ARGS = "piiiiipp"
 # the codes an empty query or target is packed as: one code that equals
 # no other (eval_batch_kernel's padding sentinels)
 Q_EMPTY, T_EMPTY = -1, -2
@@ -241,21 +243,11 @@ def eval_pack_plain(pack: Pack, device, **kw) -> np.ndarray:
     return out
 
 
-def _kernel():
-    """The C entry of csrc/evaluate.cu, built or loaded, its arguments
-    bound."""
-    from . import cuda_build
-    fn = cuda_build.load("evaluate").evaluate_launch
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] + [ci] * 5 + [vp] * 3
-    fn.restype = ci
-    return fn
-
-
 def eval_pack_cuda(pack: Pack, device, **kw) -> np.ndarray:
     """Packed results [P, 6] by csrc/evaluate.cu: one copy of the pack
     to the card, one launch, one readback."""
-    _kernel()  # built before anything reaches the card
+    # built and loaded before the pack reaches the card
+    cuda_build.bind("evaluate", "evaluate_launch", ARGS)
     P = len(pack.order)
     dbuf = torch.from_numpy(pack.buffer()).to(device)
     out = torch.empty((P, 6), dtype=torch.int32, device=device)
@@ -271,15 +263,10 @@ def launch(dbuf, P: int, out, scratch, *, max_clip: int, match: int,
     pack's `buffer()` on the card, `out` int32 [P, 6], `scratch` int32
     [scratch_len] (None where no pair takes strips)."""
     global launches
-    fn = _kernel()
-    with torch.cuda.device(dbuf.device):
-        stream = torch.cuda.current_stream(dbuf.device).cuda_stream
-        err = fn(dbuf.data_ptr(), P, max_clip, match, mismatch, ind,
-                 out.data_ptr(),
-                 None if scratch is None else scratch.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"eval_pairs_device: kernel launch failed "
-                           f"(cudaError {err})")
+    cuda_build.launch(cuda_build.bind("evaluate", "evaluate_launch", ARGS),
+                      dbuf.get_device(), dbuf.data_ptr(), P, max_clip,
+                      match, mismatch, ind, out.data_ptr(),
+                      None if scratch is None else scratch.data_ptr())
     launches += 1
 
 

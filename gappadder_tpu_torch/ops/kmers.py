@@ -9,11 +9,22 @@ support is partial, so here every limb is an int64 holding the same
 32-bit value. Every complement and left shift is masked back to 32
 bits (`& MASK32`): in int64, `~w` is negative and `w << 16` carries
 past bit 31. Invalid slots are all-ones limbs (FULL), which sort last.
+
+A gap's table of distinct canonical k-mers (block 3 of the step, and so
+the Assembly batch) is built by `merge_chunk` / `merge_chunk_nocnt`
+chunk by chunk of reads: concatenate, sort, keep the first of every
+run, compact the survivors to the front with a cumsum-rank scatter and
+cut back to the table width M. When more than M distinct k-mers exist,
+the lexicographically largest fall off the end, the saturation the
+caller detects through n == M. `filter_min_count` then applies the
+count filter.
 """
 
 from __future__ import annotations
 
 import torch
+
+from . import psort
 
 FULL = 0xFFFFFFFF
 MASK32 = 0xFFFFFFFF
@@ -111,7 +122,6 @@ def sort_kmers(limbs, extra=None):
     """Sort [..., P, nl] k-mers lexicographically along P; `extra` is an
     optional list of [..., P] tensors carried along. Returns
     (sorted_limbs, sorted_extras)."""
-    from . import psort
     nl = limbs.shape[-1]
     ops = [limbs[..., l] for l in range(nl)]
     extras = list(extra) if extra is not None else []
@@ -183,3 +193,82 @@ def count_distinct(seq, length, k: int):
     inb = torch.arange(P, device=s.device) < n_distinct[..., None]
     kmers = torch.where(inb[..., None], kmers, torch.full_like(kmers, FULL))
     return kmers, counts.to(torch.int32), n_distinct.to(torch.int32)
+
+
+def _chunk_limbs(chunk, clen, k: int):
+    """The canonical k-mers of a read chunk [G, Rc, L], FULL where
+    invalid, flattened to [G, Rc * P, nl], with their validity."""
+    limbs, valid = extract_kmers(chunk, clen, k)
+    limbs = canonicalize(limbs, k)
+    limbs = torch.where(valid[..., None], limbs, torch.full_like(limbs, FULL))
+    G = limbs.shape[0]
+    return limbs.reshape(G, -1, limbs.shape[-1]), valid.reshape(G, -1)
+
+
+def merge_chunk(chunk, clen, acc, acc_cnt, k: int):
+    """Merge the k-mers of a read chunk (codes [G, Rc, L], lengths
+    [G, Rc]) into the distinct table acc [G, M, nl] with multiplicities
+    acc_cnt int32 [G, M]. Returns the new (acc, acc_cnt)."""
+    flat, valid = _chunk_limbs(chunk, clen, k)
+    G, M, nl = acc.shape
+    both = torch.cat([acc, flat], dim=1)
+    cnts = torch.cat([acc_cnt, valid.to(torch.int32)], dim=1)
+    res = psort.bitonic_sort(tuple(both[..., l] for l in range(nl))
+                             + (cnts.to(torch.int64),), num_keys=nl)
+    s = torch.stack(res[:nl], dim=-1)
+    scnt = res[nl]
+    first = unique_mask(s)
+    keep = first & ~torch.all(s == FULL, dim=-1)
+    # segment sums of the counts of equal keys via prefix sums
+    csum = torch.cumsum(scnt.to(torch.int64), dim=-1)
+    P = s.shape[1]
+    idx = torch.arange(P, device=s.device).expand(G, P)
+    nxt = _next_first(first)
+    c0 = torch.cat([torch.zeros_like(csum[:, :1]), csum], dim=-1)
+    seg = (torch.gather(c0, -1, nxt)
+           - torch.gather(c0, -1, torch.where(first, idx,
+                                              torch.zeros_like(idx))))
+    seg = torch.where(keep, seg, torch.zeros_like(seg)).to(torch.int32)
+    return compact(s, keep, M, FULL), compact(seg, keep, M, 0)
+
+
+def merge_chunk_nocnt(chunk, clen, acc, k: int):
+    """`merge_chunk` without multiplicities (no count operand, no
+    segment sums): the same distinct set."""
+    flat, _ = _chunk_limbs(chunk, clen, k)
+    G, M, nl = acc.shape
+    both = torch.cat([acc, flat], dim=1)
+    res = psort.bitonic_sort(tuple(both[..., l] for l in range(nl)),
+                             num_keys=nl)
+    s = torch.stack(res, dim=-1)
+    keep = unique_mask(s) & ~torch.all(s == FULL, dim=-1)
+    return compact(s, keep, M, FULL)
+
+
+def filter_min_count(acc, cnt, min_count: int):
+    """Apply the min_kmer_count policy to a merged table: 0 keeps
+    everything, -1 is the adaptive error filter, >1 a fixed cutoff.
+    Returns (acc, cnt, distinct) with survivors re-compacted.
+
+    The adaptive filter takes float32 sums as the JAX code does. Both
+    sums are exact while they stay below 2^24; above that, torch and
+    XLA add in different orders, and the `>= 4` test can flip only when
+    the mean lies within float32 rounding of 4."""
+    distinct = ~torch.all(acc == FULL, dim=-1)
+    if min_count == -1:
+        counts = torch.where(distinct, cnt, torch.zeros_like(cnt))
+        cf = counts.to(torch.float32)
+        inst = torch.sum(cf, dim=-1)
+        inst2 = torch.sum(cf * cf, dim=-1)
+        mean_inst = inst2 / torch.clamp(inst, min=1.0)
+        drop = (mean_inst >= 4)[:, None] & (cnt < 2)
+        distinct = distinct & ~drop
+    elif min_count > 1:
+        distinct = distinct & (cnt >= min_count)
+    else:
+        return acc, cnt, distinct
+    acc = torch.where(distinct[..., None], acc, torch.full_like(acc, FULL))
+    cnt = torch.where(distinct, cnt, torch.zeros_like(cnt))
+    acc, ex = sort_kmers(acc, [cnt])
+    cnt = ex[0]
+    return acc, cnt, ~torch.all(acc == FULL, dim=-1)

@@ -29,8 +29,12 @@ import ctypes
 
 import torch
 
+from . import cuda_build
+
 MAX_KEYS = 6            # csrc/sort.cu: MAX_KEYS, MAX_PLANES
 MAX_PLANES = 8
+# psort_launch's arguments before the stream (cuda_build.CTYPES codes)
+ARGS = "piiiipp"
 
 # kernel launches since the last reset (chip_smoke.py reads this)
 launches = 0
@@ -105,17 +109,8 @@ def bitonic_sort(ops, num_keys: int, stable: bool = False):
         *[x.data_ptr() for x in ins], *[o.data_ptr() for o in outs],
         *[x.stride(0) for x in ins], *[x.stride(1) for x in ins])
 
-    from . import cuda_build
-    fn = cuda_build.load("sort").psort_launch
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, ci, ci, ci, ci, vp, vp, vp]
-    fn.restype = ci
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(ctypes.addressof(desc), num_keys, len(ops), B, N,
-                 wk.data_ptr(), widx.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"bitonic_sort: kernel launch failed "
-                           f"(cudaError {err})")
+    cuda_build.launch(cuda_build.bind("sort", "psort_launch", ARGS),
+                      dev.index, ctypes.addressof(desc), num_keys,
+                      len(ops), B, N, wk.data_ptr(), widx.data_ptr())
     launches += 1
     return tuple(o.reshape(shape) for o in outs)

@@ -24,16 +24,17 @@ then row i ascending). The wrapper runs it only for tensors on the CPU.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
+from . import cuda_build
 from .sw_host import SWParams
 
 NEG = -(1 << 28)
 MODES = {"local": 0, "overlap": 1, "fit": 2, "extend": 3}
 ROWS_PER_LANE = (2, 4, 8, 10, 16, 32)   # csrc/sw.cu: the band sizes R
 STRIP_ROWS = 32 * ROWS_PER_LANE[-1]     # rows of one strip of the query
+# sw_batch_launch's arguments before the stream (cuda_build.CTYPES codes)
+ARGS = "pppp" + "i" * 9 + "pppp"
 
 # kernel launches since the last reset (chip_smoke.py reads this)
 launches = 0
@@ -209,27 +210,18 @@ def sw_batch_cuda(q, qlen, t, tlen, params: SWParams = SWParams(),
     if mode not in MODES:
         raise ValueError(f"sw_batch_cuda: unknown mode {mode!r}")
 
-    from . import cuda_build
-    lib = cuda_build.load("sw")
-    fn = lib.sw_batch_launch
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, vp] + [ci] * 9 + [vp] * 5
-    fn.restype = ci
     B, Lq = q.shape
     Lt = t.shape[1]
     out = [torch.empty(B, dtype=torch.int32, device=dev) for _ in range(3)]
     # the (H, F) row a strip hands to the next, one a pair
     scratch = (torch.empty((B, Lq + Lt, 2), dtype=torch.int32, device=dev)
                if Lq > STRIP_ROWS else None)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(q.data_ptr(), qlen.data_ptr(), t.data_ptr(), tlen.data_ptr(),
-                 B, Lq, Lt, params.match, params.mismatch, params.gap_open,
-                 params.gap_extend, MODES[mode], end_slack,
-                 out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-                 None if scratch is None else scratch.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"sw_batch_cuda: kernel launch failed "
-                           f"(cudaError {err})")
+    cuda_build.launch(
+        cuda_build.bind("sw", "sw_batch_launch", ARGS), dev.index,
+        q.data_ptr(), qlen.data_ptr(), t.data_ptr(), tlen.data_ptr(), B, Lq,
+        Lt, params.match, params.mismatch, params.gap_open, params.gap_extend,
+        MODES[mode], end_slack,
+        out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+        None if scratch is None else scratch.data_ptr())
     launches += 1
     return tuple(out)

@@ -305,26 +305,6 @@ def _run_shards(mesh: Mesh, fn, per_shard):
     return outs
 
 
-def map_blocks(mesh: Mesh, fn, *arrays):
-    """fn(*blocks, device=d) on each of this process's shards' blocks of
-    the leading dim of the numpy `arrays`, in turn (fn runs no
-    collective); fn returns a tuple of numpy arrays. Returns each of
-    them over every shard, concatenated in shard order (gathered across
-    processes): the global result, split over the mesh and gathered."""
-    N = mesh.n_shards
-    if arrays[0].shape[0] % N:
-        raise ValueError(f"map_blocks: leading dim {arrays[0].shape[0]} is "
-                         f"not a multiple of the {N} shards")
-    b = arrays[0].shape[0] // N
-    s0 = mesh.first_shard
-    outs = [fn(*(a[(s0 + j) * b:(s0 + j + 1) * b] for a in arrays), device=d)
-            for j, d in enumerate(mesh.devices)]
-    return tuple(mp.to_np(ShardedArray(tuple(
-        torch.from_numpy(np.ascontiguousarray(o[i])) for o in outs), True,
-        mesh))
-        for i in range(len(outs[0])))
-
-
 def shard_map(fn, mesh: Mesh, in_specs, out_specs):
     """fn run SPMD over the mesh: the returned callable takes global
     values or ShardedArrays (placed by `in_specs`, DP or REP each) and

@@ -43,8 +43,6 @@ from ..ops.intervals import sort_windows
 from ..ops.recruit import dedup_and_join
 from ..ops.sw_cuda import sw_batch_cuda
 from ..ops.sw_host import BWA_PARAMS
-from ..pipeline.assemble import (FULL, _merge_chunk, _merge_chunk_nocnt,
-                                 filter_min_count)
 from ..utils.meters import span, spanned
 from . import dist
 from .mesh import DP, REP, Sharding, as_tensor, place, shard_map
@@ -234,21 +232,23 @@ def _distinct_kmers(seq, rlen, k: int, dims: SliceDims,
     kept when the table saturates. Without a count filter or bubble
     popping the countless merge runs (same distinct set)."""
     Gl, R, _L = seq.shape
-    acc = torch.full((Gl, dims.max_distinct, kmers.num_limbs(k)), FULL,
-                     dtype=torch.int64, device=seq.device)
+    acc = torch.full((Gl, dims.max_distinct, kmers.num_limbs(k)),
+                     kmers.FULL, dtype=torch.int64, device=seq.device)
     cnt = torch.zeros(Gl, dims.max_distinct, dtype=torch.int32,
                       device=seq.device)
     if dims.min_kmer_count == 0 and dims.pop_bubbles == 0:
         for lo in range(0, R, read_chunk):
             hi = min(lo + read_chunk, R)
-            acc = _merge_chunk_nocnt(seq[:, lo:hi], rlen[:, lo:hi], acc, k)
-        distinct = ~torch.all(acc == FULL, dim=-1)
+            acc = kmers.merge_chunk_nocnt(seq[:, lo:hi], rlen[:, lo:hi],
+                                          acc, k)
+        distinct = ~torch.all(acc == kmers.FULL, dim=-1)
     else:
         for lo in range(0, R, read_chunk):
             hi = min(lo + read_chunk, R)
-            acc, cnt = _merge_chunk(seq[:, lo:hi], rlen[:, lo:hi], acc, cnt,
-                                    k)
-        acc, cnt, distinct = filter_min_count(acc, cnt, dims.min_kmer_count)
+            acc, cnt = kmers.merge_chunk(seq[:, lo:hi], rlen[:, lo:hi], acc,
+                                         cnt, k)
+        acc, cnt, distinct = kmers.filter_min_count(acc, cnt,
+                                                    dims.min_kmer_count)
     nk = distinct.sum(-1).to(torch.int32)
     kstr = dbg.unpack_kmers_to_strings(acc, k)
     return acc, kstr, nk, cnt, distinct

@@ -23,6 +23,7 @@ length) until nothing truncates, each growth announced through
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -36,7 +37,23 @@ from ..parallel.slice import (SliceDims, _assemble_block, _group_rows,
                               gather_reads)
 from ..utils import log
 from ..utils.meters import span
-from . import assemble
+
+# hard memory backstop for the auto-grown distinct-k-mer table
+# ([G, M, nl] sort buffers): 4M k-mers per gap ~ a >4 Mb unitig
+MAX_AUTO_DISTINCT = 1 << 22
+
+
+@dataclasses.dataclass
+class GapContigs:
+    """Per-gap contig sets (padded arrays + names)."""
+    seq: np.ndarray      # int8 [G, C, Lmax]
+    length: np.ndarray   # int32 [G, C]
+    count: np.ndarray    # int32 [G]
+    names: list[list[str]]  # [G][C] contig names ("<k>_<sub_k>_<i>")
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(int(n) - 1, 0).bit_length()
 
 
 def _compact_store(batch, per_gap, readsets, R: int, L: int):
@@ -111,7 +128,7 @@ def make_assemble_step(mesh, dims: SliceDims):
 
 def assemble_batch(cfg: Config, batch, per_gap, readsets, R: int, L: int,
                    max_distinct: int, device="cuda",
-                   mesh=None) -> assemble.GapContigs:
+                   mesh=None) -> GapContigs:
     """Assemble one gap batch on `device` (the card unless the caller
     asks for "cpu"), or with `mesh` over its shards (on their devices;
     len(batch) must be a multiple of the shards). Without a mesh the
@@ -168,8 +185,7 @@ def assemble_batch(cfg: Config, batch, per_gap, readsets, R: int, L: int,
             else:
                 # tight start: unitigs are usually region-sized, far below
                 # the md + k worst case; the o_ulen indicator grows the cap
-                Lc = max(512, assemble._next_pow2(md // 4 + kmax),
-                         Lc_override)
+                Lc = max(512, _next_pow2(md // 4 + kmax), Lc_override)
             dims = SliceDims(
                 n_shards=N, n_gaps=Gb, gaps_per_shard=Gl, entry_cap=E,
                 reads_per_gap=max(R, 1), kset=tuple(cfg.kmers),
@@ -183,7 +199,7 @@ def assemble_batch(cfg: Config, batch, per_gap, readsets, R: int, L: int,
             o_nodes, o_edges, _nraw, o_nk, _nrecv, o_ucnt, o_ulen = (
                 int(x) for x in mp.to_np(over))
             if o_nk >= md:
-                if auto_md and md < assemble.MAX_AUTO_DISTINCT:
+                if auto_md and md < MAX_AUTO_DISTINCT:
                     log.warn_cap(
                         "kmer_table_grow",
                         "fused: distinct k-mer table saturated at %d; "
@@ -257,5 +273,5 @@ def assemble_batch(cfg: Config, batch, per_gap, readsets, R: int, L: int,
                 names[i] += [f"{k}_{sub_k}_{j}" for j in range(n)]
                 c += n
             out_cnt[i] = c
-        return assemble.GapContigs(seq=out_seq, length=out_len,
-                                   count=out_cnt, names=names)
+        return GapContigs(seq=out_seq, length=out_len, count=out_cnt,
+                          names=names)

@@ -2,9 +2,8 @@
 (counterpart of gappadder_tpu/pipeline/run.py), on one device or with
 the Assembly batches over the shards of a mesh.
 
-  round 1: per-gap multi-k DBG assembly (the fused device batch, or
-           the non-fused one with tpu.fused=False) -> dedup/merge ->
-           full pick (bwa-score threshold 30);
+  round 1: per-gap multi-k DBG assembly (the fused device batch) ->
+           dedup/merge -> full pick (bwa-score threshold 30);
   rescue:  both-ends-unmapped pairs matched against open gaps' contigs
            join those gaps' read sets (pipeline/rescue.py);
   round 2: re-assemble rescued gaps -> merge -> pick(30);
@@ -44,7 +43,7 @@ from ..ops import merge_engine
 from ..parallel.mesh import local_mesh, make_mesh_if_configured
 from ..utils import log
 from ..utils.meters import span, spanned
-from . import assemble, fused, pick, rescue
+from . import fused, pick, rescue
 from .preprocess import gap_ids
 from .workspace import Workspace, config_hash
 
@@ -118,26 +117,6 @@ def build_gap_read_arrays(rec, readsets, n_gaps: int):
     return per_gap
 
 
-def _pad_batch(gap_indices, per_gap, readsets, R, L):
-    """[G, R, L] read codes, [G, R] lengths and [G] read counts of a
-    gap batch for the non-fused Assembly batch; -1 slots stay empty."""
-    G = len(gap_indices)
-    seq = np.full((G, R, L), dna.N, np.int8)
-    rlen = np.zeros((G, R), np.int32)
-    nreads = np.zeros(G, np.int32)
-    for i, g in enumerate(gap_indices):
-        if g < 0:
-            continue  # padding slot
-        rows = per_gap[g][:R]
-        nreads[i] = len(rows)
-        for j, (li, side, row) in enumerate(rows):
-            rs = readsets[li][side]
-            ln = min(int(rs.length[row]), L)
-            seq[i, j, :ln] = rs.get_seq(row)[:ln]
-            rlen[i, j] = ln
-    return seq, rlen, nreads
-
-
 def _tuple_from_list(clist, cnames):
     """(seq 2-D, lens, count, names) from a ragged contig list."""
     n = len(clist)
@@ -163,7 +142,7 @@ def _restack(contig_store, batch):
         lens[i, :n] = l[:n]
         cnt[i] = n
         names.append(nm)
-    return assemble.GapContigs(seq=seq, length=lens, count=cnt, names=names)
+    return fused.GapContigs(seq=seq, length=lens, count=cnt, names=names)
 
 
 # coarse read-count buckets -> (reads bucket, max-distinct-kmer START);
@@ -196,12 +175,10 @@ def _bucket_of(n: int):
 def _assemble_gaps(cfg, gap_list, per_gap, readsets, L, contig_store, mcfg,
                    minfo=None, device="cuda", mesh=None):
     """Assemble + refine contigs for the given gaps (bucketed by read
-    count), through the fused device batch (`fused.assemble_batch`), or
-    with `tpu.fused=False` the non-fused one (`_pad_batch` +
-    `assemble.assemble_gap_batch`), over `mesh` (default: the one shard
-    of `mesh.local_mesh(device)`): the gap batch is a multiple of its
-    shards and split over them (per-gap assembly needs no collective
-    but the route home)."""
+    count), through the fused device batch (`fused.assemble_batch`) over
+    `mesh` (default: the one shard of `mesh.local_mesh(device)`): the
+    gap batch is a multiple of its shards and split over them (per-gap
+    assembly needs no collective but the route home)."""
     if mesh is None:
         mesh = local_mesh(device)
     buckets: dict[int, list[int]] = {}
@@ -232,16 +209,9 @@ def _assemble_gaps(cfg, gap_list, per_gap, readsets, L, contig_store, mcfg,
             batch = gl[lo:lo + gb]
             padded = batch + [-1] * (gb - len(batch))  # fixed G shape
             Rcap = min(R, cap) if cap else R
-            if cfg.tpu.fused:
-                contigs = fused.assemble_batch(
-                    cfg, padded, per_gap, readsets, Rcap, L,
-                    max_distinct=md_of[R], device=device, mesh=mesh)
-            else:
-                seq, rlen, nreads = _pad_batch(padded, per_gap, readsets,
-                                               Rcap, L)
-                contigs = assemble.assemble_gap_batch(
-                    cfg, seq, rlen, nreads, max_distinct=md_of[R],
-                    device=device, mesh=mesh)
+            contigs = fused.assemble_batch(
+                cfg, padded, per_gap, readsets, Rcap, L,
+                max_distinct=md_of[R], device=device, mesh=mesh)
             for i, g in enumerate(batch):
                 raw_order.append(g)
                 raw_store[g] = ([np.asarray(contigs.seq[i][j]

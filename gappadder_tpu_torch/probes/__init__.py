@@ -20,11 +20,10 @@ runs its probe on the card as its JAX script does:
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from .. import entry_device
+from ..ops import cuda_build
 
 # kernel launches since the last reset, by csrc/probes.cu entry
 # (probe_<name>); chip_smoke.py reads them
@@ -36,17 +35,14 @@ launches = dict.fromkeys(("dynamic_sublane", "int16_loop", "loop_yardstick",
 # column in one warp, 32 lanes of at most 32 rows (swprobe 33)
 MAX_ROWS = 1024
 
-# each C entry's arguments before the device index and the stream: p a
-# pointer, i an int, q a 64-bit int
-_ARGS = {"dynamic_sublane": "ppiip", "int16_loop": "piiip",
-         "loop_yardstick": "piiiiip", "int32_argmax": "piiipp",
-         "swprobe": "piiiiip", "int16_elementwise": "pqp", "int16_roll": "piip"}
-_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_longlong}
+# each C entry's arguments before the stream (cuda_build.CTYPES codes),
+# the last the device index
+_ARGS = {"dynamic_sublane": "ppiipi", "int16_loop": "piiipi",
+         "loop_yardstick": "piiiiipi", "int32_argmax": "piiippi",
+         "swprobe": "piiiiipi", "int16_elementwise": "pqpi",
+         "int16_roll": "piipi"}
 
-_fns: dict = {}         # probe_<name> with its argtypes set
 _devices: dict = {}     # a device string -> its torch.device
-# device index -> PyTorch's current raw stream there (CUDA builds only)
-_stream = None
 
 
 def tensor_on(a, dtype: torch.dtype, device: torch.device,
@@ -102,16 +98,10 @@ def check_rows(entry: str, x: torch.Tensor) -> None:
                          f"{MAX_ROWS} rows")
 
 
-def _bind(name: str):
-    global _stream
-    from ..ops import cuda_build
-    fn = getattr(cuda_build.load("probes"), f"probe_{name}")
-    fn.argtypes = [_CTYPES[c] for c in _ARGS[name]] + [ctypes.c_int,
-                                                      ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    _fns[name] = fn
-    _stream = torch._C._cuda_getCurrentRawStream
-    return fn
+def kernel(name: str):
+    """csrc/probes.cu's `probe_<name>`, bound (built and loaded at first
+    use)."""
+    return cuda_build.bind("probes", f"probe_{name}", _ARGS[name])
 
 
 def launch(name: str, index: int, *args) -> None:
@@ -120,11 +110,7 @@ def launch(name: str, index: int, *args) -> None:
     on PyTorch's current stream there. `args` are the entry's own, each
     a pointer (`data_ptr()`) or an int. Raises on a non-zero
     cudaError."""
-    fn = _fns.get(name) or _bind(name)
-    err = fn(*args, index, _stream(index))
-    if err != 0:
-        raise RuntimeError(f"probe_{name}: kernel launch failed "
-                           f"(cudaError {err})")
+    cuda_build.launch(kernel(name), index, *args, sets_device=True)
     launches[name] += 1
 
 

@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 
 from . import dna
-from .pipeline.assemble import FULL
+from .ops.kmers import FULL
 
 # entry_cap of the production step (64 gaps of up to 1000 bp, 100 bp
 # reads at step 4): 4 * 64 * 272 recruit entries

@@ -243,15 +243,12 @@ def test_driver_entry_points_refuse_without_gpu(monkeypatch, driver_inputs,
 
 
 def _tool_entries(tmp_path):
-    """The CLI, Evaluate, the tools and the non-fused batch, each on a
-    toy input."""
+    """The CLI, Evaluate and the tools, each on a toy input."""
     import json
     from gappadder_tpu_torch import cli
-    from gappadder_tpu_torch.config import Config
     from gappadder_tpu_torch.io import fasta
     from gappadder_tpu_torch.ops import swutil
     from gappadder_tpu_torch.ops.sw_host import BWA_PARAMS
-    from gappadder_tpu_torch.pipeline import assemble
     from gappadder_tpu_torch.tools import evaluate, refiner, scaffold
     rng = np.random.default_rng(0)
     t = rng.integers(0, 4, 400).astype(np.int8)
@@ -261,9 +258,6 @@ def _tool_entries(tmp_path):
     with open(tmp_path / "c.json", "w") as fh:
         json.dump({"draft_genome": {"fa": "d.fa"},
                    "parameters": {"working_folder": "w"}}, fh)
-    reads = np.tile(t[None, None, :60], (1, 4, 1))
-    rlen = np.full((1, 4), 60, np.int32)
-    cfg = Config(draft_genome="d.fa", kmers=((17, 15),))
     gaps = {"start": np.array([200]), "end": np.array([220])}
     fl, fr = t[None, 100:195], t[None, 225:320]
     lens = (np.array([95]), np.array([95]))
@@ -297,28 +291,21 @@ def _tool_entries(tmp_path):
             t[:50], t[:50], **kw),
         "build_scaffolds": lambda **kw: scaffold.build_scaffolds(
             [t[:100], t[80:180]], ["a", "b"], links, **kw),
-        "gap_distinct_kmers": lambda **kw: assemble.gap_distinct_kmers(
-            reads, rlen, np.array([4]), 17, 256, **kw),
-        "count_gap_kmers": lambda **kw: assemble.count_gap_kmers(
-            cfg, reads, rlen, np.array([4]), 17, 256, **kw),
-        "assemble_gap_batch": lambda **kw: assemble.assemble_gap_batch(
-            cfg, reads, rlen, np.array([4]), 256, **kw),
     }
 
 
 TOOL_ENTRIES = ["cli.main", "sw_small", "_best_placement",
                 "seeded_placements", "extract_true_gap_seqs", "closure_stats",
                 "discordant_alignment_stats", "classify_repeat",
-                "build_scaffolds", "gap_distinct_kmers", "count_gap_kmers",
-                "assemble_gap_batch"]
+                "build_scaffolds"]
 
 
 @pytest.mark.parametrize("entry", TOOL_ENTRIES)
 def test_cli_and_tool_entry_points_refuse_without_gpu(monkeypatch, tmp_path,
                                                       entry):
-    """The CLI (no --device: the card), Evaluate, the tools and the
-    non-fused batch run on the card unless asked for the CPU, and raise
-    without a card; nothing falls back on its own."""
+    """The CLI (no --device: the card), Evaluate and the tools run on
+    the card unless asked for the CPU, and raise without a card; nothing
+    falls back on its own."""
     call = _tool_entries(tmp_path)[entry]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -305,10 +305,7 @@ def _emulated_sort(lib, ops, nk):
     desc = (ctypes.c_int64 * (4 * len(ops)))(
         *[x.data_ptr() for x in ins], *[o.data_ptr() for o in outs],
         *[x.stride(0) for x in ins], *[x.stride(1) for x in ins])
-    fn = lib.psort_launch
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, ci, ci, ci, ci, vp, vp, vp]
-    fn.restype = ci
+    fn = cuda_build.bind(lib, "psort_launch", psort.ARGS)
     assert fn(ctypes.addressof(desc), nk, len(ops), B, N, wk.data_ptr(),
               widx.data_ptr(), None) == 0
     return [o.reshape(shape) for o in outs]
@@ -354,10 +351,7 @@ def _emulated_sw(lib, q, ql, t, tl, params, mode, slack):
     out = [torch.full((B,), -5, dtype=torch.int32) for _ in range(3)]
     scratch = (torch.full((B, Lq + Lt, 2), -77, dtype=torch.int32)
                if Lq > sw_cuda.STRIP_ROWS else None)
-    fn = lib.sw_batch_launch
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, vp] + [ci] * 9 + [vp] * 5
-    fn.restype = ci
+    fn = cuda_build.bind(lib, "sw_batch_launch", sw_cuda.ARGS)
     assert fn(q.data_ptr(), ql.data_ptr(), t.data_ptr(), tl.data_ptr(), B,
               Lq, Lt, params.match, params.mismatch,
               params.gap_open, params.gap_extend, sw_cuda.MODES[mode], slack,
@@ -433,10 +427,7 @@ def _emulated_evaluate(lib, pairs, max_clip, match=1, mismatch=-2,
     buf = torch.from_numpy(pack.buffer())
     out = torch.full((P, 6), -5, dtype=torch.int32)
     scratch = torch.full((max(pack.scratch_len, 1),), -77, dtype=torch.int32)
-    fn = lib.evaluate_launch
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] + [ci] * 5 + [vp] * 3
-    fn.restype = ci
+    fn = cuda_build.bind(lib, "evaluate_launch", evaluate_dp.ARGS)
     assert fn(buf.data_ptr(), P, max_clip, match, mismatch, ind,
               out.data_ptr(), scratch.data_ptr(), None) == 0
     res = np.zeros((P, 6), np.int32)
@@ -477,10 +468,7 @@ def _probe_entry(lib, name, *args, device=0):
     """csrc/probes.cu's `probe_<name>` with the argument types the
     wrapper binds it with (`probes._ARGS`), on CPU buffers, on emulated
     device `device`."""
-    fn = getattr(lib, f"probe_{name}")
-    fn.argtypes = [probes._CTYPES[c] for c in probes._ARGS[name]] + [
-        ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = cuda_build.bind(lib, f"probe_{name}", probes._ARGS[name])
     assert fn(*args, device, None) == 0
     assert lib.emu_misaligned_vectors() == 0
 
@@ -568,10 +556,7 @@ def test_emulated_map_entries_return_the_sm_query_error(emulated, name):
     args = {"dynamic_sublane": (idx.data_ptr(), t.data_ptr(), 7, 33),
             "int16_roll": (x.data_ptr(), 7, 33),
             "int16_elementwise": (x.data_ptr(), x.numel())}[name]
-    fn = getattr(lib, f"probe_{name}")
-    fn.argtypes = [probes._CTYPES[c] for c in probes._ARGS[name]] + [
-        ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = cuda_build.bind(lib, f"probe_{name}", probes._ARGS[name])
     try:
         assert fn(*args, out.data_ptr(), 0, None) == 1
     finally:
@@ -721,10 +706,7 @@ def test_emulated_swprobe_refuses_what_it_does_not_take(emulated):
     """More than 1024 rows, a level outside 0-3 or steps with no grid
     step return cudaErrorInvalidValue and write nothing."""
     lib = emulated("probes")
-    fn = lib.probe_swprobe
-    fn.argtypes = [probes._CTYPES[c] for c in probes._ARGS["swprobe"]] + [
-        ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = cuda_build.bind(lib, "probe_swprobe", probes._ARGS["swprobe"])
     x = torch.zeros((1025, 4), dtype=torch.int32)
     out = torch.full((4,), 77, dtype=torch.int32)
     for S, nstep, chunk, level in ((1025, 8, 1, 3), (8, 8, 1, 4),

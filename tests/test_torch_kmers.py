@@ -12,7 +12,6 @@ from gappadder_tpu.ops import kmers as jk
 from gappadder_tpu.pipeline import assemble as jasm
 from gappadder_tpu_torch import dna as tdna
 from gappadder_tpu_torch.ops import kmers as tk
-from gappadder_tpu_torch.pipeline import assemble as tasm
 
 KS = [17, 31, 32, 33, 50, 64]
 
@@ -78,7 +77,7 @@ def test_merge_chunks(k, M):
     nl = jk.num_limbs(k)
     ja = jnp.full((2, M, nl), jasm.FULL, jnp.uint32)
     jc = jnp.zeros((2, M), jnp.int32)
-    ta = torch.full((2, M, nl), tasm.FULL, dtype=torch.int64)
+    ta = torch.full((2, M, nl), tk.FULL, dtype=torch.int64)
     tc = torch.zeros(2, M, dtype=torch.int32)
     jn, tn = ja, ta
     for lo in (0, 3):
@@ -86,9 +85,9 @@ def test_merge_chunks(k, M):
         ts, tl = torch.from_numpy(seq[:, lo:lo + 3]), \
             torch.from_numpy(ln[:, lo:lo + 3])
         ja, jc = jasm._merge_chunk(js, jl, ja, jc, k)
-        ta, tc = tasm._merge_chunk(ts, tl, ta, tc, k)
+        ta, tc = tk.merge_chunk(ts, tl, ta, tc, k)
         jn = jasm._merge_chunk_nocnt(js, jl, jn, k)
-        tn = tasm._merge_chunk_nocnt(ts, tl, tn, k)
+        tn = tk.merge_chunk_nocnt(ts, tl, tn, k)
     _eq(ja, ta)
     _eq(jc, tc)
     _eq(jn, tn)
@@ -106,8 +105,8 @@ def test_filter_min_count(min_count):
     cnt[:, 30:] = 0
     ja, jc, jd = jasm.filter_min_count(jnp.asarray(acc.astype(np.uint32)),
                                        jnp.asarray(cnt), min_count)
-    ta, tc, td = tasm.filter_min_count(torch.from_numpy(acc.astype(np.int64)),
-                                       torch.from_numpy(cnt), min_count)
+    ta, tc, td = tk.filter_min_count(torch.from_numpy(acc.astype(np.int64)),
+                                     torch.from_numpy(cnt), min_count)
     _eq(ja, ta)
     _eq(jc, tc)
     _eq(jd, td)

@@ -2,8 +2,8 @@
 tests/test_mesh_pipeline.py): Preprocess, Collect and the Assembly
 driver on the CPU with 8 CPU shards and mesh (4, 2) close the gap with
 the planted bases, and write the unsharded run's recruits and
-picked_seqs.fa byte for byte; the non-fused Assembly batch on a mesh
-of 2 writes them too."""
+picked_seqs.fa byte for byte; a mesh of 2 with `tpu.fused` false,
+which the port reads and ignores, writes them too."""
 
 import dataclasses
 
@@ -118,15 +118,17 @@ def test_pipeline_with_mesh(scenario, monkeypatch):
     _same_files(cfg.workdir, cfg8.workdir)
 
 
-def test_nonfused_pipeline_with_mesh(scenario, monkeypatch):
+def test_fused_false_pipeline_with_mesh(scenario, monkeypatch):
+    """`"fused": false` in the config changes nothing: the one Assembly
+    batch runs over the 2 shards and writes the unsharded run's files."""
     cfg, root, _fills, want = scenario
     cfg2 = dataclasses.replace(
-        cfg, working_folder=str(root / "nonfused2"),
+        cfg, working_folder=str(root / "fused_false2"),
         tpu=dataclasses.replace(cfg.tpu, mesh_shape=(2,), mesh_axes=("dp",),
                                 fused=False))
-    seen = _spy(monkeypatch, "map_blocks")
+    seen = _spy(monkeypatch, "_run_shards")
     fills = _pipeline(cfg2, cpu_devices=2)
-    # the k-mer counts and the DBG calls split over the 2 shards
+    # Collect's pass-1 batches and the Assembly batches ran on 2 shards
     assert len(seen) >= 2 and set(seen) == {2}
     assert dna.decode(fills[0][0]) == want
     _same_files(cfg.workdir, cfg2.workdir)
