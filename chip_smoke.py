@@ -102,6 +102,9 @@ PRODUCTION = dict(gaps_per_shard=64, read_len=100, step=4, flank_len=300,
 SW_OPS_PER_CELL = 11
 # csrc/evaluate.cu: int32 operations a live cell (its header counts them)
 EVAL_OPS_PER_CELL = 12
+# csrc/traceback.cu: int32 operations a cell in local mode (28 in fit;
+# its header counts them)
+TRACEBACK_OPS_PER_CELL = 33
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 N_WINDOWS, STEPS_PER_WINDOW = 5, 5
 # the probe kernels on the probes path, by launch counter: the name in
@@ -328,7 +331,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from gappadder_tpu_torch.config import Config
     from gappadder_tpu_torch.ops import cuda_build, dbg, psort, sw_cuda
-    from gappadder_tpu_torch.ops import evaluate_dp, sw_host
+    from gappadder_tpu_torch.ops import evaluate_dp, traceback_dp
     from gappadder_tpu_torch.ops import swutil
     from gappadder_tpu_torch.ops.sw_host import BWA_PARAMS, SWParams
     from gappadder_tpu_torch.parallel import slice as sl
@@ -345,12 +348,14 @@ def main() -> int:
     def reset_counts():
         """Every kernel's launch count to 0, just before a path runs."""
         sw_cuda.launches = psort.launches = evaluate_dp.launches = 0
+        traceback_dp.launches = 0
         for k in probes.launches:
             probes.launches[k] = 0
 
     def read_counts() -> dict:
         return {"sw": sw_cuda.launches, "sort": psort.launches,
-                "evaluate_dp": evaluate_dp.launches, **probes.launches}
+                "evaluate_dp": evaluate_dp.launches,
+                "traceback": traceback_dp.launches, **probes.launches}
 
     dev = torch.device("cuda", 0)
     card = smi("name,power.limit")
@@ -582,7 +587,7 @@ def main() -> int:
          for j in range(int(contigs.count[g]))], contigs.names[g])
         for g in batch}
     truth = sl.example_fills(pargs, per_gap)
-    pick_times = {"sw_ms": 0.0, "host_ms": 0.0}
+    pick_times = {"sw_ms": 0.0, "traceback_ms": 0.0}
 
     def timed(fn, key):
         def wrapper(*a, **kw):
@@ -597,15 +602,17 @@ def main() -> int:
     reset_counts()
     t = time.perf_counter()
     with patched(swutil, "sw_pairs", timed(swutil.sw_pairs, "sw_ms")), \
-            patched(sw_host, "alignment_stats_batch",
-                    timed(sw_host.alignment_stats_batch, "host_ms")), \
+            patched(traceback_dp, "alignment_stats_device",
+                    timed(traceback_dp.alignment_stats_device,
+                          "traceback_ms")), \
             recording_sw(swutil) as pick_sw:
         run._pick_gaps(cfg, gaps, batch, store, fills, exts,
                        cfg.pick_min_score_round1, False)
     pick_ms = dict(pick_times, total_ms=(time.perf_counter() - t) * 1e3)
     launches["pick"] = read_counts()
-    if launches["pick"]["sw"] < 1:
-        raise AssertionError("Pick did not launch the SW kernel")
+    if min(launches["pick"]["sw"], launches["pick"]["traceback"]) < 1:
+        raise AssertionError("Pick did not launch the SW and traceback "
+                             f"kernels: {launches['pick']}")
     missing = [g for g in batch if g not in fills]
     if missing:
         raise AssertionError(f"Pick left gaps {missing} unfilled")
@@ -871,6 +878,19 @@ def main() -> int:
                  "rows in the driver_time line, Collect's shapes in the "
                  "collect_time line, the batched DBG's in "
                  "dbg_multi_shapes"},
+        {"name": "alignment_stats_device", "route": "cuda",
+         "source": "gappadder_tpu_torch/csrc/traceback.cu",
+         "replaces": "none: sw_host.alignment_stats_batch's host fill "
+                     "and walk (its plain twin)",
+         "launches": launches["driver"]["traceback"],
+         **{k: drv["traceback"]["total"][k]
+            for k in ("winners", "cells", "ms", "call_ms", "host_ms",
+                      "bound_ms")},
+         "launches_by_path": {p: v["traceback"] for p, v in launches.items()},
+         "check": "exact equality with alignment_stats_batch on every "
+                  "Pick traceback call of the driver and chain paths; "
+                  "times summed over the driver path's calls (driver_time "
+                  "line), the chain's in the collect_time line"},
         *probe_rows])
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1010,8 +1030,8 @@ class DriverClock:
     """Host-clock ms of the driver's stages and sub-stages (each call
     between two synchronisations of the card, summed by label; an outer
     stage's time includes its sub-stages'), the counts the driver_time
-    line reports, and a copy of the inputs of every SW and sort call with
-    the label of the stage that made it."""
+    line reports, and a copy of the inputs of every SW, sort, Evaluate
+    and traceback call with the label of the stage that made it."""
 
     def __init__(self):
         self.ms: dict = {}
@@ -1023,6 +1043,7 @@ class DriverClock:
         self.sw_calls: list = []
         self.sorts: dict = {}
         self.eval_calls: list = []
+        self.tb_calls: list = []
 
     def add(self, key, n):
         self.counts[key] = self.counts.get(key, 0) + n
@@ -1126,6 +1147,16 @@ class DriverClock:
             return eval_inner(pairs_seqs, max_clip, *a, **kw)
         stack.enter_context(patched(evaluate_dp, "eval_pairs_device",
                                     eval_record))
+
+        from gappadder_tpu_torch.ops import traceback_dp
+        tb_inner = traceback_dp.alignment_stats_device
+
+        def tb_record(q, ql, t, tl, p, mode, qend, tend, device="cuda"):
+            self.tb_calls.append((self.stack[-1], tuple(
+                np.array(x) for x in (q, ql, t, tl, qend, tend)), p, mode))
+            return tb_inner(q, ql, t, tl, p, mode, qend, tend, device=device)
+        stack.enter_context(patched(traceback_dp, "alignment_stats_device",
+                                    tb_record))
 
         sort_inner = psort.bitonic_sort
 
@@ -1280,6 +1311,7 @@ def driver_phase(pargs, rowtab, dev, ops_s, reset_counts,
 
     sw_keys, held_sw, held_sort = hold_driver_calls(clock, dev)
     evaluate = evaluate_driver_calls(clock, dev, launches["evaluate_dp"])
+    traceback = traceback_driver_calls(clock, dev, launches["traceback"])
     if not any(qs[1] > sw_cuda.STRIP_ROWS for _, qs, _, _, _ in sw_keys):
         raise AssertionError("the driver made no SW call with Lq > 1024")
     check.update(n_gaps=len(glens), filled=len(fills), extended=len(exts),
@@ -1289,7 +1321,8 @@ def driver_phase(pargs, rowtab, dev, ops_s, reset_counts,
                  closed_by=clock.closed_by,
                  sw_shapes_equal_plain=held_sw,
                  sort_shapes_equal_plain=held_sort,
-                 evaluate_calls_equal_plain=len(evaluate["calls"]))
+                 evaluate_calls_equal_plain=len(evaluate["calls"]),
+                 traceback_calls_equal_host=len(traceback["calls"]))
 
     # the SW kernel at the merge's and rescue's shapes; every call by mode
     merge_shapes, by_mode = [], {}
@@ -1334,7 +1367,8 @@ def driver_phase(pargs, rowtab, dev, ops_s, reset_counts,
     return {"check": check, "launches": launches, "total_ms": total_ms,
             "stage_ms": clock.ms, "refine": refine, "counts": clock.counts,
             "sw_by_mode": by_mode, "sw_merge_shapes": merge_shapes,
-            "seedmatch_sorts": seed_sorts, "evaluate": evaluate}
+            "seedmatch_sorts": seed_sorts, "evaluate": evaluate,
+            "traceback": traceback}
 
 
 def install_collect_clock(clock, stack, ws, collect, preprocess, gapscan,
@@ -1526,6 +1560,7 @@ def chain_phase(dev, reset_counts, read_counts, tmp) -> dict:
                           "extended": g in exts} for g in short}
     sw_keys, held_sw, held_sort = hold_driver_calls(dclock, dev)
     evaluate = evaluate_driver_calls(dclock, dev, launches["evaluate_dp"])
+    traceback = traceback_driver_calls(dclock, dev, launches["traceback"])
     held_collect = []
     for (shape, nk, npay), (n, ops) in sorted(collect_sorts.items()):
         check_sort(psort, ops, nk)
@@ -1553,7 +1588,8 @@ def chain_phase(dev, reset_counts, read_counts, tmp) -> dict:
         "collect_sort_shapes_equal_plain": held_collect,
         "driver_sw_shapes_equal_plain": held_sw,
         "driver_sort_shapes_equal_plain": held_sort,
-        "driver_evaluate_calls_equal_plain": len(evaluate["calls"])}
+        "driver_evaluate_calls_equal_plain": len(evaluate["calls"]),
+        "driver_traceback_calls_equal_host": len(traceback["calls"])}
     timing = {
         "simulate_ms": sim_ms, "ingest_ms": ingest_ms,
         "preprocess_ms": ingest.get("preprocess", 0.0),
@@ -1569,7 +1605,7 @@ def chain_phase(dev, reset_counts, read_counts, tmp) -> dict:
         "driver_ms": driver_ms, "driver_stage_ms": dclock.ms,
         "driver_counts": dclock.counts,
         "patch_ms": patch_ms, "collect_sorts": sort_rows,
-        "evaluate": evaluate}
+        "evaluate": evaluate, "traceback": traceback}
     return {"check": check, "time": timing, "launches": launches,
             "collect_launches": collect_launches, "cfg": cfgs["card"],
             "truth": truth}
@@ -2181,6 +2217,64 @@ def evaluate_driver_calls(clock, dev, launched: int) -> dict:
             "bound_ms": cells * EVAL_OPS_PER_CELL / ops_s * 1e3})
     tot = {k: sum(r[k] for r in rows)
            for k in ("pairs", "cells", "ms", "call_ms", "plain_ms",
+                     "bound_ms")}
+    return {"calls": rows, "total": tot}
+
+
+def traceback_driver_calls(clock, dev, launched: int) -> dict:
+    """Every Pick traceback call (a pass's winners) a DriverClock
+    recorded, each with winners one of the `launched` kernel launches
+    (else it raises): the kernel's (qstart, tstart, m_sum) held to the
+    host traceback (`sw_host.alignment_stats_batch`), then timed: `ms`
+    the kernel alone by CUDA events over back-to-back launches on the
+    staged pack, `call_ms` one call of the card path (pack, copy in,
+    launch, readback), `device_ms` the kernel by the profiler, `host_ms`
+    the host traceback it replaces, `bound_ms` the cells (the sum of
+    qend * tend) at TRACEBACK_OPS_PER_CELL over the issue rate."""
+    from gappadder_tpu_torch.ops import sw_host, traceback_dp
+    ops_s = int_ops_per_s(torch.cuda.get_device_properties(dev),
+                          float(smi("clocks.max.sm").split()[0]))
+    with_winners = sum(1 for _, a, _, _ in clock.tb_calls if len(a[4]))
+    if launched != with_winners:
+        raise AssertionError(f"{launched} traceback launches for "
+                             f"{with_winners} calls with winners")
+    rows = []
+    for lab, (q, ql, t, tl, qend, tend), p, mode in clock.tb_calls:
+        if not len(qend):
+            continue
+        t0 = time.perf_counter()
+        want = np.stack(sw_host.alignment_stats_batch(q, ql, t, tl, p, mode,
+                                                      qend, tend))
+        host_ms = (time.perf_counter() - t0) * 1e3
+        got = np.stack(traceback_dp.alignment_stats_device(
+            q, ql, t, tl, p, mode, qend, tend, device=dev))
+        if not np.array_equal(got, want):
+            raise AssertionError(f"traceback kernel != host ({lab}, {mode}, "
+                                 f"{len(qend)} winners)")
+        pack = traceback_dp.pack_winners(q, t, qend, tend)
+        P = len(qend)
+        n = pack.meta[:, 1].astype(np.int64)
+        m = pack.meta[:, 3].astype(np.int64)
+        cells = int((n * m).sum())
+        dbuf = torch.from_numpy(pack.buffer()).to(dev)
+        out = torch.empty((3, P), dtype=torch.int32, device=dev)
+        scratch = torch.empty(max(pack.scratch_len, 1), dtype=torch.int32,
+                              device=dev)
+        kernel = lambda: traceback_dp.launch(dbuf, P, out, scratch, p, mode)
+        dev_ms, kernels, _ = kernel_profile(kernel, 5, "traceback_kernel")
+        rows.append({
+            "stage": lab, "mode": mode, "winners": P, "cells": cells,
+            "max_n": int(n.max()), "max_m": int(m.max()),
+            "strip_winners": int((n > traceback_dp.STRIP_ROWS).sum()),
+            "ms": cuda_ms(kernel, 20),
+            "call_ms": cuda_ms(lambda: traceback_dp.alignment_stats_device(
+                q, ql, t, tl, p, mode, qend, tend, device=dev), 5),
+            "device_ms": dev_ms / kernels if kernels else None,
+            "kernels_seen": kernels, "host_ms": host_ms,
+            "bound_ms": cells * TRACEBACK_OPS_PER_CELL / ops_s * 1e3})
+    clock.tb_calls = []
+    tot = {k: sum(r[k] for r in rows)
+           for k in ("winners", "cells", "ms", "call_ms", "host_ms",
                      "bound_ms")}
     return {"calls": rows, "total": tot}
 

@@ -165,9 +165,9 @@ class Pack:
     first (n * m descending): `order[k]` is the caller's index of packed
     pair k. `meta` int32 [P, 5] holds each pair's (query offset, n,
     target offset, m, scratch offset or -1) into `codes` (int8, every
-    pair's query then target) and into the strips' scratch, a row of m
-    int32 for each pair of more than STRIP_ROWS query rows
-    (`scratch_len` in all)."""
+    pair's query then target) and into the strips' scratch, a row of
+    `col_ints` int32 a column for each pair of more than `strip_rows`
+    query rows (`scratch_len` in all; see `pack_pairs`)."""
     order: np.ndarray
     meta: np.ndarray
     codes: np.ndarray
@@ -183,23 +183,27 @@ class Pack:
         return np.concatenate([self.meta.view(np.int8).ravel(), self.codes])
 
 
-def pack_pairs(pairs_seqs) -> Pack:
-    """The ragged pack of (s1, s2) pairs; an empty sequence becomes one
-    sentinel code (Q_EMPTY, T_EMPTY) that matches nothing."""
+def pack_pairs(pairs_seqs, strip_rows: int = STRIP_ROWS, col_ints: int = 1,
+               sentinels: bool = True) -> Pack:
+    """The ragged pack of (s1, s2) pairs for a kernel that sweeps queries
+    of more than `strip_rows` rows in strips through a scratch row of
+    `col_ints` int32 a column (csrc/evaluate.cu's defaults). With
+    `sentinels` an empty sequence becomes one sentinel code (Q_EMPTY,
+    T_EMPTY) that matches nothing; without, it stays empty."""
     P = len(pairs_seqs)
     seqs = []
     for a, b in pairs_seqs:
-        seqs.append(np.asarray(a, np.int8) if len(a) else
+        seqs.append(np.asarray(a, np.int8) if len(a) or not sentinels else
                     np.array([Q_EMPTY], np.int8))
-        seqs.append(np.asarray(b, np.int8) if len(b) else
+        seqs.append(np.asarray(b, np.int8) if len(b) or not sentinels else
                     np.array([T_EMPTY], np.int8))
     lens = np.fromiter((len(x) for x in seqs), np.int64, 2 * P).reshape(P, 2)
     order = np.argsort(-(lens[:, 0] * lens[:, 1]), kind="stable")
     lens = lens[order]
     flat = lens.ravel()
     offs = np.concatenate([[0], np.cumsum(flat)[:-1]]).reshape(P, 2)
-    strips = lens[:, 0] > STRIP_ROWS
-    s_len = np.where(strips, lens[:, 1], 0)
+    strips = lens[:, 0] > strip_rows
+    s_len = np.where(strips, lens[:, 1] * col_ints, 0)
     s_off = np.where(strips, np.cumsum(s_len) - s_len, -1)
     total = int(flat.sum())
     if total >= 1 << 31 or int(s_len.sum()) >= 1 << 31:

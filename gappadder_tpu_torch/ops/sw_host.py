@@ -2,9 +2,11 @@
 traceback.
 
 Exact full-matrix DP, vectorised over anti-diagonals; the tests hold
-the batched SW implementations against it. The pick stage walks each
-winning hit's path back on the host (`alignment_stats_batch`, one
-batched DP fill for all winners of a pass), as the JAX package does.
+the batched SW implementations against it. `alignment_stats_batch` (one
+batched DP fill for all winners of a pass, then a walk back along each
+path, as the JAX package traces) is the plain twin of Pick's traceback
+kernel `csrc/traceback.cu` (`traceback_dp.alignment_stats_device`): on
+the card Pick's tracebacks run in that kernel, on the CPU here.
 
 Modes:
   local      Smith-Waterman: H clamped at 0, best anywhere.

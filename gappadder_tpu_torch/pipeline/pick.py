@@ -4,9 +4,12 @@
 Both flanks are aligned against every contig of a gap (forward and
 reverse-complement queries) with bwa-equivalent scoring, the SW passes
 batched on the card through `swutil.sw_pairs` (the hand-written kernel
-`csrc/sw.cu`); the winning pairs get a host traceback for clip typing
-(`sw_host.alignment_stats_batch`); then the reference's selection
-logic runs:
+`csrc/sw.cu`); the winners of each pass get their path's start and
+match count for clip typing from one traceback launch on the card
+(`traceback_dp.alignment_stats_device`, the hand-written kernel
+`csrc/traceback.cu`; on the CPU its plain twin, the host traceback
+`sw_host.alignment_stats_batch`); then the reference's selection logic
+runs:
 
   FULL closure (`pick_full`): contigs hit by BOTH flanks on the same
     strand; 7 clip-type combos (no LEFT+LEFT / RIGHT+RIGHT / any
@@ -36,7 +39,7 @@ import dataclasses
 import numpy as np
 
 from .. import dna, entry_device
-from ..ops import sw_host, swutil
+from ..ops import swutil, traceback_dp
 from ..ops.sw_host import BWA_PARAMS
 
 UNCLIP, LEFT_CLIP, RIGHT_CLIP, BOTH_CLIP = 4, 2, 3, 1  # reference codes
@@ -59,7 +62,7 @@ class FlankHit:
 
 def align_flanks_to_contigs(flank_left, flank_right, contigs, contig_lens,
                             n_contigs, min_score: int, max_hits: int = 3,
-                            device="cuda"):
+                            device="cuda", meter=None):
     """Align both flanks (fwd+rc) of each gap to each of its contigs.
 
     Args:
@@ -69,8 +72,13 @@ def align_flanks_to_contigs(flank_left, flank_right, contigs, contig_lens,
       max_hits: non-overlapping local hits enumerated per
         (flank, contig, strand) — the bwa `-a` multi-hit list
         (pick_contigs.py:80-86); 1 restores round-1 single-hit behavior.
-      device: where the SW passes run: the card unless the caller asks
-        for "cpu"; the tracebacks run on the host either way.
+      device: where the SW passes and the winners' tracebacks run: the
+        card unless the caller asks for "cpu" (then the tracebacks are
+        the host's `sw_host.alignment_stats_batch`).
+      meter: a span's handle (`utils.meters.span`) that takes each
+        pass's counts: `tracebacks` (winners traced), `cells` (the sum
+        of qend * tend over them) and `launches` (traceback kernel
+        launches: 1 a pass with winners on the card, 0 on the CPU).
 
     Returns: per gap, list[FlankHit] with score >= min_score.
     """
@@ -113,6 +121,16 @@ def align_flanks_to_contigs(flank_left, flank_right, contigs, contig_lens,
 
     hits: list[list[FlankHit]] = [[] for _ in range(G)]
 
+    def stats(q, ql, t, tl, mode, qe, te):
+        before = traceback_dp.launches
+        out = traceback_dp.alignment_stats_device(
+            q, ql, t, tl, BWA_PARAMS, mode, qe, te, device=device)
+        if meter is not None:
+            meter.add(tracebacks=len(qe),
+                      cells=int((qe.astype(np.int64) * te).sum()),
+                      launches=traceback_dp.launches - before)
+        return out
+
     # multi-hit local passes: mask each reported hit's target span to N
     # and realign, so secondary (repeat) placements surface like bwa -a
     t_work = np.array(t_batch, copy=True)
@@ -129,11 +147,10 @@ def align_flanks_to_contigs(flank_left, flank_right, contigs, contig_lens,
         win = np.nonzero(score >= min_score)[0]
         if len(win) == 0:
             break
-        # batched host traceback for all winners of this pass (one
-        # anti-diagonal sweep for the whole batch, not one per hit)
-        qs_b, ts_b, ms_b = sw_host.alignment_stats_batch(
-            q_batch[win], ql_batch[win], t_work[win], tl_batch[win],
-            BWA_PARAMS, "local", qend[win], tend[win])
+        # one traceback call for all winners of this pass
+        qs_b, ts_b, ms_b = stats(q_batch[win], ql_batch[win], t_work[win],
+                                 tl_batch[win], "local", qend[win],
+                                 tend[win])
         for w, i in enumerate(win):
             g, qi, c = int(pg[i]), int(pq[i]), int(pc[i])
             qlen = int(ql_batch[i])
@@ -174,9 +191,9 @@ def align_flanks_to_contigs(flank_left, flank_right, contigs, contig_lens,
     fwin = np.nonzero((fscore >= min_score) & (fscore != score) &
                       (fscore >= score - 2 * END_BONUS))[0]
     if len(fwin):
-        qs_b, ts_b, ms_b = sw_host.alignment_stats_batch(
-            q_batch[fwin], ql_batch[fwin], t_batch[fwin], tl_batch[fwin],
-            BWA_PARAMS, "fit", fqend[fwin], ftend[fwin])
+        qs_b, ts_b, ms_b = stats(q_batch[fwin], ql_batch[fwin],
+                                 t_batch[fwin], tl_batch[fwin], "fit",
+                                 fqend[fwin], ftend[fwin])
         for w, i in enumerate(fwin):
             g, qi, c = int(pg[i]), int(pq[i]), int(pc[i])
             qlen = int(ql_batch[i])

@@ -236,45 +236,47 @@ def _assemble_gaps(cfg, gap_list, per_gap, readsets, L, contig_store, mcfg,
         contig_store[g] = _tuple_from_list(clist, cnames)
 
 
-@spanned("assembly.pick")
 def _pick_gaps(cfg, gaps, gap_list, contig_store, fills, exts, min_score,
                allow_extension, device="cuda"):
     """Pick the gaps of `gap_list` that have contigs and no fill yet, in
     batches of 64: full closures into `fills[g] = (seq, contig name)`,
     and with `allow_extension` the extension fallback into `exts`. The
-    SW passes run on `device` (the card unless the caller asks for
-    "cpu")."""
-    gap_list = [g for g in gap_list if g in contig_store
-                and contig_store[g][2] > 0 and g not in fills]
-    # 64-gap pick batches: each batch is up to max_hits local passes
-    # and one fit pass on the device; the winners' tracebacks are host
-    for lo in range(0, len(gap_list), 64):
-        batch = gap_list[lo:lo + 64]
-        if not batch:
-            continue
-        gc = _restack(contig_store, batch)
-        fl = gaps["flank_left"][batch]
-        fr = gaps["flank_right"][batch]
-        hits = pick.align_flanks_to_contigs(
-            fl, fr, gc.seq, gc.length, gc.count,
-            min_score=min_score, max_hits=cfg.pick_max_hits,
-            device=device)
-        for i, g in enumerate(batch):
-            res = pick.pick_full(hits[i], gc.seq[i], gc.length[i])
-            if res is not None:
-                c, gap_seq, rc, _ = res
-                fills[g] = (gap_seq, gc.names[i][c])
-            elif allow_extension and g not in exts:
-                res = pick.pick_extension(hits[i], gc.seq[i], gc.length[i])
+    SW passes and the winners' tracebacks run on `device` (the card
+    unless the caller asks for "cpu"); the `assembly.pick` span counts
+    the `tracebacks`, their `cells` and the traceback kernel's
+    `launches`."""
+    with span("assembly.pick") as sp:
+        gap_list = [g for g in gap_list if g in contig_store
+                    and contig_store[g][2] > 0 and g not in fills]
+        # 64-gap pick batches: each batch is up to max_hits local passes
+        # and one fit pass, each with one traceback call for its winners
+        for lo in range(0, len(gap_list), 64):
+            batch = gap_list[lo:lo + 64]
+            gc = _restack(contig_store, batch)
+            fl = gaps["flank_left"][batch]
+            fr = gaps["flank_right"][batch]
+            hits = pick.align_flanks_to_contigs(
+                fl, fr, gc.seq, gc.length, gc.count,
+                min_score=min_score, max_hits=cfg.pick_max_hits,
+                device=device, meter=sp)
+            for i, g in enumerate(batch):
+                res = pick.pick_full(hits[i], gc.seq[i], gc.length[i])
                 if res is not None:
-                    lc, rc_, seq, _ = res
-                    nm = gc.names[i]
-                    lname = nm[lc] if lc >= 0 else ""
-                    rname = nm[rc_] if rc_ >= 0 else ""
-                    # keep the exact winner names alongside the joined
-                    # display string (contig names embed underscores,
-                    # so the joined form is not splittable)
-                    exts[g] = (seq, f"{lname}_{rname}", (lname, rname))
+                    c, gap_seq, rc, _ = res
+                    fills[g] = (gap_seq, gc.names[i][c])
+                elif allow_extension and g not in exts:
+                    res = pick.pick_extension(hits[i], gc.seq[i],
+                                              gc.length[i])
+                    if res is not None:
+                        lc, rc_, seq, _ = res
+                        nm = gc.names[i]
+                        lname = nm[lc] if lc >= 0 else ""
+                        rname = nm[rc_] if rc_ >= 0 else ""
+                        # keep the exact winner names alongside the
+                        # joined display string (contig names embed
+                        # underscores, so the joined form is not
+                        # splittable)
+                        exts[g] = (seq, f"{lname}_{rname}", (lname, rname))
 
 
 def run_assembly_and_pick(cfg: Config, ws: Workspace, rec=None,

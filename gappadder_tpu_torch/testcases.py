@@ -402,6 +402,141 @@ def evaluate_test_pairs(seed, count=40, lmin=5, lmax=300, long_rows=(),
     return [pairs[i] for i in rng.permutation(len(pairs))]
 
 
+# query rows at Pick's traceback kernel's band edges (32 lanes of R
+# rows, R in {1, 2, 4, 6, 8, 10, 12, 16}: R = 1 up to 32 rows, 10 at the
+# flanks' 300, 16 from 385) and past its strips of 512 rows
+TRACEBACK_ROWS = (1, 31, 32, 33, 64, 65, 300, 320, 321, 384, 385, 512)
+TRACEBACK_STRIP_ROWS = (513, 1100)
+
+
+def traceback_winners(seed, mode: str, rows=TRACEBACK_ROWS, cols=(60, 140),
+                      tiny=120, mid=40, dels=40):
+    """A pass's winning hits for holding Pick's traceback kernel
+    (csrc/traceback.cu) to `sw_host.alignment_stats_batch`, shuffled
+    out of length order, as `pick.align_flanks_to_contigs` hands them
+    over: for each n in `rows` a query of n rows against a target of
+    `cols` bases holding a copy of part of it with a substitution, an
+    insertion and a deletion, one or two spans of the target masked to
+    N as a later pass masks reported hits, twice: ending at the mode's
+    best cell and at a random cell; past 600 rows, a target that skips
+    30 query rows around each multiple of 512, so the best path's
+    insertion crosses a strip edge; repeats that tie the diagonal
+    against E or F (poly-A runs with an indel, two-letter tandem repeats
+    with an indel); in `fit` mode queries that start with a run of N or
+    of bases the target lacks before its copy at the target's start, so
+    the path starts with insertions down column 0; ends on row or
+    column 0; `tiny` pairs of 1-10 bases and `mid` pairs of 10-30 bases
+    of two or three letters ending at random cells, and `dels` two-letter
+    targets of 30 bases whose query lacks 1-4 of them, ending at the best
+    cell (where the tie rules decide the path, a gap's opening against
+    its extension too), and small pairs whose path turns on that last
+    rule, across a strip edge too.
+
+    Returns (q int8 [B, Lq], ql int32 [B], t int8 [B, Lt], tl, qend
+    int32 [B], tend)."""
+    from .ops.sw_host import BWA_PARAMS, sw_np
+    rng = np.random.default_rng(seed)
+
+    def rand(n, k=4):
+        return rng.integers(0, k, n).astype(np.int8)
+
+    def best(q, t):
+        _, qe, te, _ = sw_np(q, t, BWA_PARAMS, mode)
+        return qe, te
+
+    def anywhere(q, t):
+        return (int(rng.integers(0, len(q) + 1)),
+                int(rng.integers(0, len(t) + 1)))
+
+    items = []   # (q, t, qend, tend)
+    for n in rows:
+        q = rand(n)
+        t = rand(int(rng.integers(*cols)))
+        k = min(n, len(t) - 8)
+        if k > 6:
+            chunk = q[n - k:].copy()
+            chunk[k // 3] = (chunk[k // 3] + 1) % 4
+            chunk = np.concatenate([chunk[:k // 2], rand(1),
+                                    chunk[k // 2:-3], chunk[-2:]])
+            at = int(rng.integers(0, len(t) - len(chunk) + 1))
+            t[at:at + len(chunk)] = chunk[:len(t) - at]
+        for _ in range(int(rng.integers(1, 3))):
+            lo = int(rng.integers(0, len(t)))
+            t[lo:lo + int(rng.integers(1, 12))] = dna.N
+        items.append((q, t, *best(q, t)))
+        items.append((q, t, *anywhere(q, t)))
+        for e in range(512, n - 60, 512):
+            t = np.concatenate([q[e - 60:e - 15], q[e + 15:e + 60]])
+            items.append((q, t, *best(q, t)))
+    runs = [(np.zeros(30, np.int8), np.concatenate(
+                [np.zeros(24, np.int8), [1], np.zeros(9, np.int8)])),
+            (np.concatenate([np.zeros(12, np.int8), [2], np.zeros(12,
+                                                                  np.int8)]),
+             np.zeros(40, np.int8)),
+            (np.tile(np.int8([0, 1]), 20)[1:], np.tile(np.int8([0, 1]), 28)),
+            (np.tile(np.int8([0, 1, 2]), 14),
+             np.concatenate([np.tile(np.int8([0, 1, 2]), 6),
+                             np.tile(np.int8([0, 1, 2]), 9)[2:]]))]
+    for q, t in runs:
+        items.append((q, t, *best(q, t)))
+        items.append((q, t, len(q), len(t)))
+    if mode == "fit":
+        for head in (np.full(5, dna.N, np.int8), np.full(3, 3, np.int8),
+                     np.full(9, dna.N, np.int8)):
+            t = rand(70)
+            t[t == 3] = 2
+            q = np.concatenate([head, t[:40]])
+            items.append((q, t, *best(q, t)))
+        t = rand(70)
+        t[:6] = dna.N
+        q = np.concatenate([np.full(4, dna.N, np.int8), t[6:50]])
+        items.append((q, t, *best(q, t)))
+    q, t = rand(40), rand(50)
+    items += [(q, t, 0, 20), (q, t, 17, 0), (q, t, 0, 0)]
+    for i in range(tiny + mid):
+        k = 2 + i % 2
+        lo, hi = (1, 11) if i < tiny else (10, 31)
+        q, t = rand(int(rng.integers(lo, hi)), k), rand(
+            int(rng.integers(lo, hi)), k)
+        items.append((q, t, *anywhere(q, t)))
+    def bits(x: str):
+        return np.array([int(c) for c in x], np.int8)
+
+    # paths that turn on a gap's extension against its opening, each
+    # with its end cell (under unit scores in local and fit mode, under
+    # bwa's in fit mode; found by a search over small pairs), and past
+    # 512 rows one whose insertion extends across the strip edge at row
+    # 512 from a cell where opening would start elsewhere (unit scores,
+    # local mode: the N rows above it keep H at 0)
+    for qs, ts, qe, te in (("110001", "01000101", 5, 7),
+                           ("10101", "1010001010", 4, 7),
+                           ("000000101", "110001011110100", 9, 12)):
+        items.append((bits(qs), bits(ts), qe, te))
+    if max(rows) > 512:
+        q = np.concatenate([np.full(492, dna.N, np.int8),
+                            bits("110110011001110000001110")])
+        items.append((q, bits("1101100101000000110100110110"), 513, 7))
+    for _ in range(dels):
+        t = rand(30, 2)
+        at = int(rng.integers(3, 27))
+        q = np.concatenate([t[:at], t[at + int(rng.integers(1, 5)):]])
+        items.append((q, t, *best(q, t)))
+    items = [items[i] for i in rng.permutation(len(items))]
+    B = len(items)
+    Lq = max(len(x[0]) for x in items)
+    Lt = max(len(x[1]) for x in items)
+    q = np.full((B, Lq), dna.N, np.int8)
+    t = np.full((B, Lt), dna.N, np.int8)
+    for b, (qb, tb, _, _) in enumerate(items):
+        q[b, :len(qb)] = qb
+        t[b, :len(tb)] = tb
+    ql = np.array([len(x[0]) for x in items], np.int32)
+    tl = np.array([len(x[1]) for x in items], np.int32)
+    qend = np.array([x[2] for x in items], np.int32)
+    tend = np.array([x[3] for x in items], np.int32)
+    return q, ql, t, tl, qend, tend
+
+
 def driver_workspace(root, args, rowtab, hold_back=(), step: int = 4):
     """Write the Assembly+Pick driver's inputs for the scenario of
     `parallel.slice.example_data` into a Workspace at `root`, as Collect

@@ -1,5 +1,5 @@
-"""The port's CUDA paths on a card: the SW, sort, Evaluate and probe
-kernels against their plain versions, the contig refine, and the fused step, the Assembly batch,
+"""The port's CUDA paths on a card: the SW, sort, Evaluate, traceback
+and probe kernels against their plain versions, the contig refine, and the fused step, the Assembly batch,
 Pick, the Assembly+Pick driver, Preprocess and Collect, the CLI and
 the multi-setting DBG on the card against their CPU runs.
 These
@@ -18,7 +18,7 @@ import torch
 
 from gappadder_tpu_torch import probes
 from gappadder_tpu_torch.ops import (dbg, evaluate_dp, merge_engine, psort,
-                                     sw_cuda, sw_host)
+                                     sw_cuda, sw_host, traceback_dp)
 from gappadder_tpu_torch.parallel import slice as sl
 from gappadder_tpu_torch.probes import int16_repro, swprobe
 from gappadder_tpu_torch.probes import kernel_experiments as ke
@@ -26,12 +26,14 @@ from gappadder_tpu_torch.testcases import (ARGMAX_INPUTS, DBG_MULTI_CASES,
                                            EVAL_STRIP_ROWS, INT16_LOOP_INPUTS,
                                            SORT_CASES, SW_EDGE_SHAPES,
                                            SW_STRIP_SHAPES, SWPROBE_INPUTS,
-                                           SWPROBE_SHAPES, dbg_multi_case,
+                                           SWPROBE_SHAPES,
+                                           TRACEBACK_STRIP_ROWS,
+                                           dbg_multi_case,
                                            driver_workspace,
                                            evaluate_test_pairs, probe_input,
                                            refine_test_items, sort_case,
                                            sw_edge_pairs, sw_strip_pairs,
-                                           sw_test_pairs)
+                                           sw_test_pairs, traceback_winners)
 
 MODES = ["local", "overlap", "fit", "extend"]
 
@@ -123,6 +125,66 @@ def test_evaluate_kernel_matches_plain_on_ties(cuda, max_clip):
                                             device=cuda)
         np.testing.assert_array_equal(
             got, _evaluate_plain(pairs, "cpu", *sc, max_clip=max_clip))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", ["bands", "strips"])
+@pytest.mark.parametrize("mode", ["local", "fit"])
+@pytest.mark.parametrize("params", [sw_host.BWA_PARAMS,
+                                    sw_host.SWParams(1, -1, 1, 1)],
+                         ids=["bwa", "unit"])
+def test_traceback_kernel_matches_host(cuda, rows, mode, params):
+    """The emulation's cases (tests/test_torch_kernel_emulation.py) on
+    the card, in one launch each: every winner's (qstart, tstart, m_sum)
+    equal to `sw_host.alignment_stats_batch`'s."""
+    kw = (dict(cols=(24, 56), tiny=60, mid=24, dels=24) if rows == "bands" else
+          dict(rows=TRACEBACK_STRIP_ROWS, cols=(24, 40), tiny=10,
+                   mid=10, dels=10))
+    q, ql, t, tl, qend, tend = traceback_winners(
+        len(mode) + params.gap_open, mode, **kw)
+    before = traceback_dp.launches
+    got = traceback_dp.alignment_stats_device(q, ql, t, tl, params, mode,
+                                              qend, tend, device=cuda)
+    assert traceback_dp.launches == before + 1
+    want = sw_host.alignment_stats_batch(q, ql, t, tl, params, mode, qend,
+                                         tend)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["local", "fit"])
+def test_traceback_kernel_at_picks_shapes(cuda, mode):
+    """A pass at Pick's shapes: 48 flanks of 300 bases (fwd and rc, one
+    with N runs) against contigs of 300-2,500 bases holding a mutated
+    copy of part of the flank, the contigs N-masked where an earlier
+    pass reported a hit; each winner ends where the SW kernel says."""
+    from gappadder_tpu_torch.ops import swutil
+    rng = np.random.default_rng(22)
+    B, FL, LT = 48, 300, 2500
+    q = rng.integers(0, 4, (B, FL + 1)).astype(np.int8)
+    q[:, FL] = 4
+    q[5, 100:120] = 4
+    t = np.full((B, LT), 4, np.int8)
+    ql = np.full(B, FL, np.int32)
+    tl = rng.integers(300, LT + 1, B).astype(np.int32)
+    for b in range(B):
+        t[b, :tl[b]] = rng.integers(0, 4, tl[b])
+        k = int(rng.integers(120, FL + 1))
+        at = int(rng.integers(0, tl[b] - k + 1))
+        chunk = q[b, FL - k:FL].copy()
+        chunk[rng.random(k) < 0.02] = 0
+        t[b, at:at + k] = chunk
+        lo = int(rng.integers(0, tl[b] - 50))
+        t[b, lo:lo + 50] = 4
+    _, qend, tend = swutil.sw_pairs(q, ql, t, tl, sw_host.BWA_PARAMS, mode,
+                                    device=cuda)
+    got = traceback_dp.alignment_stats_device(
+        q, ql, t, tl, sw_host.BWA_PARAMS, mode, qend, tend, device=cuda)
+    want = sw_host.alignment_stats_batch(q, ql, t, tl, sw_host.BWA_PARAMS,
+                                         mode, qend, tend)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
 
 
 @pytest.mark.gpu
@@ -263,9 +325,10 @@ def test_pick_on_card_matches_cpu(cuda):
                               device="cpu")
     a = (gaps["flank_left"], gaps["flank_right"], gc.seq, gc.length,
          gc.count)
-    before = sw_cuda.launches
+    before = sw_cuda.launches, traceback_dp.launches
     gpu = pick.align_flanks_to_contigs(*a, min_score=30, device=cuda)
-    assert sw_cuda.launches >= before + 2
+    assert sw_cuda.launches >= before[0] + 2
+    assert traceback_dp.launches >= before[1] + 1
     cpu = pick.align_flanks_to_contigs(*a, min_score=30, device="cpu")
     assert gpu == cpu
 

@@ -1,5 +1,5 @@
-"""The CUDA sources of the sort, SW, Evaluate and probe kernels, run on
-the CPU.
+"""The CUDA sources of the sort, SW, Evaluate, traceback and probe
+kernels, run on the CPU.
 
 A card is the only place the kernels run for real (tests/test_torch_gpu.py
 holds them to their plain versions there). This file checks the kernels'
@@ -24,7 +24,8 @@ import pytest
 import torch
 
 from gappadder_tpu_torch import probes
-from gappadder_tpu_torch.ops import cuda_build, evaluate_dp, psort, sw_cuda
+from gappadder_tpu_torch.ops import (cuda_build, evaluate_dp, psort, sw_cuda,
+                                     sw_host, traceback_dp)
 from gappadder_tpu_torch.ops.sw_host import BWA_PARAMS, SWParams
 from gappadder_tpu_torch.probes import int16_repro, swprobe
 from gappadder_tpu_torch.probes import kernel_experiments as ke
@@ -32,9 +33,11 @@ from gappadder_tpu_torch.testcases import (ARGMAX_INPUTS, EVAL_STRIP_ROWS,
                                            INT16_LOOP_INPUTS, SW_EDGE_SHAPES,
                                            SW_STRIP_SHAPES, SWPROBE_INPUTS,
                                            SWPROBE_SHAPES,
+                                           TRACEBACK_STRIP_ROWS,
                                            evaluate_test_pairs, probe_input,
                                            sort_case, sw_edge_pairs,
-                                           sw_strip_pairs, sw_test_pairs)
+                                           sw_strip_pairs, sw_test_pairs,
+                                           traceback_winners)
 
 EMULATION = r"""
 #pragma once
@@ -462,6 +465,51 @@ def test_emulated_evaluate_kernel_in_strips(emulated):
         want = evaluate_dp.eval_pairs_device(pairs, clip, *sc, device="cpu")
         np.testing.assert_array_equal(
             _emulated_evaluate(lib, pairs, clip, *sc), want)
+
+
+def _emulated_traceback(lib, q, t, qend, tend, params, mode):
+    """traceback_dp.stats_pack_cuda's launch, on CPU buffers (the strips'
+    scratch filled with garbage first), scattered back to the winners'
+    order."""
+    pack = traceback_dp.pack_winners(q, t, qend, tend)
+    P = len(pack.order)
+    buf = torch.from_numpy(pack.buffer())
+    out = torch.full((3, P), -5, dtype=torch.int32)
+    scratch = torch.full((max(pack.scratch_len, 1),), -77, dtype=torch.int32)
+    fn = cuda_build.bind(lib, "traceback_launch", traceback_dp.ARGS)
+    assert fn(buf.data_ptr(), P, traceback_dp.MODES[mode], params.match,
+              params.mismatch, params.gap_open, params.gap_extend,
+              out.data_ptr(), scratch.data_ptr(), None) == 0
+    res = np.zeros((3, P), np.int64)
+    res[:, pack.order] = out.numpy()
+    return res
+
+
+@pytest.mark.parametrize("rows", ["bands", "strips"])
+@pytest.mark.parametrize("mode", ["local", "fit"])
+@pytest.mark.parametrize("params", [BWA_PARAMS, SWParams(1, -1, 1, 1)],
+                         ids=["bwa", "unit"])
+def test_emulated_traceback_kernel_matches_host(emulated, rows, mode,
+                                                params):
+    """Every winner's (qstart, tstart, m_sum) equal to the host
+    traceback's: queries at the kernel's band edges (1-512 rows) or
+    past its strips of 512 rows (513, 1100), targets with N-masked
+    spans, ends at the best cell and at random cells, poly-A and tandem
+    repeats that tie the diagonal against E or F, tiny two- and
+    three-letter pairs, fit paths that start down column 0, ends on row
+    or column 0; under bwa's scores and under unit scores (gap open
+    equal to extension, so opening ties extending)."""
+    lib = emulated("traceback")
+    kw = (dict(cols=(24, 56), tiny=60, mid=24, dels=24) if rows == "bands" else
+          dict(rows=TRACEBACK_STRIP_ROWS, cols=(24, 40), tiny=10,
+                   mid=10, dels=10))
+    q, ql, t, tl, qend, tend = traceback_winners(
+        len(mode) + params.gap_open, mode, **kw)
+    want = sw_host.alignment_stats_batch(q, ql, t, tl, params, mode, qend,
+                                         tend)
+    np.testing.assert_array_equal(
+        _emulated_traceback(lib, q, t, qend, tend, params, mode),
+        np.stack(want))
 
 
 def _probe_entry(lib, name, *args, device=0):

@@ -8,6 +8,7 @@ import json
 import os
 import pathlib
 
+import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -228,3 +229,47 @@ def test_assembly_driver_spans(tmp_path):
     assert st["assembly.rescue"]["recruited"] > 0
     assert st["assembly.rescue"]["verified"] <= \
         st["assembly.rescue"]["candidates"]
+
+
+def test_pick_span_counts_the_host_tracebacks(monkeypatch):
+    """`assembly.pick` counts each pass's winners (`tracebacks`), their
+    cells (the sum of qend * tend) and the traceback kernel's `launches`:
+    on the CPU exactly the winners the host traceback traced, and no
+    launch."""
+    from gappadder_tpu_torch.config import Config
+    from gappadder_tpu_torch.ops import sw_host
+    from gappadder_tpu_torch.pipeline import run
+    traced = []
+    host = sw_host.alignment_stats_batch
+
+    def counted(q, ql, t, tl, p, mode, qend, tend):
+        traced.append((len(qend),
+                       int((np.asarray(qend, np.int64) * tend).sum())))
+        return host(q, ql, t, tl, p, mode, qend, tend)
+    monkeypatch.setattr(sw_host, "alignment_stats_batch", counted)
+    # two gaps, three contigs each: the first spans both flanks and the
+    # gap, the second holds two copies of the left flank with its last
+    # base changed (a second local pass; a fit pass), the third neither
+    rng = np.random.default_rng(3)
+    FL, L = 120, 400
+    store, fl, fr = {}, [], []
+    for g in range(2):
+        contigs = [rng.integers(0, 4, L).astype(np.int8) for _ in range(3)]
+        for at in (20, 250):
+            contigs[1][at:at + FL] = contigs[0][50:50 + FL]
+            contigs[1][at + FL - 1] = (contigs[0][50 + FL - 1] + 1) % 4
+        store[g] = run._tuple_from_list(contigs, [f"c{g}_{i}"
+                                                  for i in range(3)])
+        fl.append(np.append(contigs[0][50:50 + FL], 4))
+        fr.append(np.append(contigs[0][300:300 + FL], 4))
+    gaps = {"flank_left": np.array(fl), "flank_right": np.array(fr)}
+    fills, exts = {}, {}
+    with meters.Meters() as m:
+        run._pick_gaps(Config(draft_genome="d.fa"), gaps, [0, 1], store,
+                       fills, exts, 30, True, device="cpu")
+    assert sorted(fills) == [0, 1]
+    rec = m.stages["assembly.pick"]
+    assert len(traced) == 3              # two local passes, the fit pass
+    assert rec["tracebacks"] == sum(n for n, _ in traced) > 0
+    assert rec["cells"] == sum(c for _, c in traced)
+    assert rec["launches"] == 0
